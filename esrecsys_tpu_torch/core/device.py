@@ -1,0 +1,25 @@
+"""Device selection and static-shape helpers."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    """Smallest multiple of ``m`` that is >= ``n``."""
+    return ((n + m - 1) // m) * m
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another. Asking for CUDA on a host without a usable card raises;
+    nothing drops quietly to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    return dev
