@@ -6,26 +6,40 @@ Phases, each reported on its own line; any failure exits non-zero before
 the result line:
 
   1. device   - the card's name and power limit (nvidia-smi), torch/CUDA;
-  2. build    - every CUDA kernel of the served path, built from the
-                sources in this checkout with nvcc for sm_90a;
+  2. build    - every CUDA kernel of the port (csrc/*.cu), built from the
+                sources in this checkout with nvcc for sm_90a, one nvcc per
+                source, all started together;
   3. kernels  - each kernel against its plain PyTorch version on the card,
-                at ragged and full-catalog shapes;
-  4. main     - the playlist catalog served end to end at full width:
-                a model (feature_size 32, 100,000 album buckets, 295,861
-                artists) initialised from seed 0, exported, loaded back,
-                its 2,262,292 tracks embedded and served top-500 by the
-                fused and the exact RetrievalService, 64 queries through
-                topk and several HTTP requests through serve(port=0);
-                then overlap@500 of fused against exact, timings, and a
-                torch.profiler breakdown of one served call.
+                at ragged shapes, edge cases (ties, one repeated id, empty
+                batches) and the main path's full shapes;
+  4. train    - the main path's training half: the quality flagship
+                (feature_size 32, 100,000 album buckets, 295,861 artists,
+                B=2048, C=5, M=32, a shared pool of 512 negatives,
+                row-sparse steps with the dense momentum carrier, SGD
+                momentum 0.98 at lr 0.004, bf16 scoring), initialised from
+                seed 0, trained 20 steps through the gather and scatter-add
+                kernels, with one fused recall@500 eval round over 2,048
+                playlists against all 2,262,292 tracks (the affinity
+                kernel), then exported; then the exact eval on the same
+                playlists, K steps with the kernels against K steps with
+                their plain versions from one state, and a torch.profiler
+                breakdown of one step;
+  5. serve    - the trained artifact loaded, its catalog embedded and
+                served top-500 by the fused and the exact RetrievalService,
+                64 queries through topk and several HTTP requests through
+                serve(port=0); overlap@500 of fused against exact, timings,
+                and a torch.profiler breakdown of one served call.
 
-The second-to-last line is the kernel table as JSON, the last line
-``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+Each main-path phase sets the launch counts to 0 just before it and reads
+them just after. The second-to-last line is the kernel table as JSON, the
+last line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
+outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -40,6 +54,21 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor rate
 TOL = 1e-5                    # kernel vs plain: absolute and relative
 QUALITY_FLOOR = 0.99          # fused overlap@500 against exact
+POOL_TOL = 1e-6               # pooled lookup: K float32 rows in two orders
+# 76,288 float32 adds into one row in two orders: partial sums reach about
+# 3, so the two sums may part by about sqrt(n) float32 ulps of 3
+PILEUP_ATOL = 5e-4
+STEPS = 20                    # training steps of the main path
+K_STEPS = 5                   # steps compared, kernels against plain
+# kernels against plain over K steps: atomics sum duplicate rows in
+# another order, and a last-ulp difference in a table value can flip its
+# bf16 rounding, which moves one gradient element by a bf16 ulp; tables
+# and momentum must agree within these bounds, and at most this share of
+# their elements may differ by more than 1e-6 (a scatter into a wrong row
+# would move whole rows)
+TRAIN_TABLE_ATOL = 1e-5
+TRAIN_MOMENTUM_ATOL = 2e-4
+TRAIN_DIFF_SHARE = 1e-4
 
 
 def log(msg: str) -> None:
@@ -228,6 +257,559 @@ def phase_kernels(card: str) -> float:
     return worst
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the train step's gather and scatter-add through their plain
+    PyTorch versions (on the card) while the block runs."""
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.ops import lookup, scatter
+
+    saved = (lookup.gather_pool, lookup.scatter_add, scatter.scatter_add)
+    lookup.gather_pool = gp.gather_pool_plain
+    lookup.scatter_add = sa.scatter_add_plain
+    scatter.scatter_add = sa.scatter_add_plain
+    try:
+        yield
+    finally:
+        lookup.gather_pool, lookup.scatter_add, scatter.scatter_add = saved
+
+
+def phase_build() -> None:
+    from esrecsys_tpu_torch.kernels import build
+
+    names = build.kernel_sources()
+    t0 = time.perf_counter()
+    build.build_all(names)
+    log(f"build {', '.join(names)}: {time.perf_counter() - t0:.1f} s, one "
+        f"nvcc per source started together")
+    for name in names:
+        for line in build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+def check_gather_scatter(card: str):
+    """gather_pool and scatter_add against their plain versions at ragged
+    shapes and edge cases. Returns (gather max err, scatter max err)."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    g_err = s_err = 0.0
+    for D in (4, 32, 64):
+        R = 100_003
+        table = torch.randn(R, D, generator=gen, device="cuda")
+        for B, K, mean, mask_id in ((1, 1, False, -1), (777, 1, False, -1),
+                                    (13, 5, True, 0), (1000, 5, False, 0)):
+            # clamped (negative, past the end) and masked ids included
+            ids = torch.randint(-3, R + 7, (B, K), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            ids[0, 0] = mask_id
+            k = gp.gather_pool_cuda(table, ids, mean, mask_id)
+            p = gp.gather_pool_plain(table, ids, mean, mask_id)
+            torch.cuda.synchronize()
+            if K == 1 and not torch.equal(k, p):
+                raise AssertionError(f"gather_pool K=1 D={D} B={B} differs")
+            torch.testing.assert_close(k, p, rtol=POOL_TOL, atol=POOL_TOL)
+            g_err = max(g_err, float((k - p).abs().max()))
+        for n in (1, 777, 10_000):
+            ids = torch.randint(-2, R + 2, (n,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            upd = torch.randn(n, D, generator=gen, device="cuda") * 1e-3
+            k = sa.scatter_add_cuda(table.clone(), ids, upd)
+            p = sa.scatter_add_plain(table.clone(), ids, upd)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(k, p, rtol=TOL, atol=TOL)
+            s_err = max(s_err, float((k - p).abs().max()))
+    # empty batches launch nothing and K=0 pools to zeros
+    table = torch.randn(50, 32, generator=gen, device="cuda")
+    empty = gp.gather_pool_cuda(table, torch.zeros((0, 1), dtype=torch.int32,
+                                                   device="cuda"), False, -1)
+    zero_k = gp.gather_pool_cuda(table, torch.zeros((3, 0), dtype=torch.int32,
+                                                    device="cuda"), True, -1)
+    sa.scatter_add_cuda(table, torch.zeros(0, dtype=torch.int32,
+                                           device="cuda"),
+                        torch.zeros((0, 32), device="cuda"))
+    torch.cuda.synchronize()
+    if empty.shape != (0, 32) or not bool((zero_k == 0).all()):
+        raise AssertionError("empty gather_pool batches are wrong")
+    # every id equal: 76,288 updates pile onto one row
+    table = torch.randn(100_096, 32, generator=gen, device="cuda")
+    upd = torch.randn(76_288, 32, generator=gen, device="cuda") * 1e-2
+    same = torch.full((76_288,), 7, dtype=torch.int32, device="cuda")
+    k = sa.scatter_add_cuda(table.clone(), same, upd)
+    p = sa.scatter_add_plain(table.clone(), same, upd)
+    torch.cuda.synchronize()
+    pile = float((k - p).abs().max())
+    if pile > PILEUP_ATOL or not torch.equal(
+            torch.cat([k[:7], k[8:]]), torch.cat([table[:7], table[8:]])):
+        raise AssertionError(f"scatter_add pile-up: max err {pile}")
+    log(f"kernel gather_pool: D in (4, 32, 64), B in (1, 13, 777, 1000), "
+        f"K in (1, 5), sum and mean, masked and clamped ids, empty batches: "
+        f"ok, K=1 exactly equal, max_abs_err {g_err:.3g} [{card}]")
+    log(f"kernel scatter_add: D in (4, 32, 64), n in (1, 777, 10000) with "
+        f"dropped out-of-range ids: ok, max_abs_err {s_err:.3g}; 76,288 "
+        f"updates on one row: max_abs_err {pile:.3g} (bound {PILEUP_ATOL}) "
+        f"[{card}]")
+    return g_err, s_err
+
+
+def affinity_at(q, packed, album, artist, actx, artx, b, g):
+    """Exact float32 affinity of queries ``b`` to catalog items ``g``."""
+    qf = q.float()[b]                                   # (n, C, D)
+    items = packed[:, g.long()].T.float()               # (n, D)
+    s = (qf * items[:, None, :]).sum(-1).amax(-1)
+    s = s + (actx[b] == album[g.long()][:, None]).any(-1).float() * 0.1
+    return s + (artx[b] == artist[g.long()][:, None]).any(-1).float() * 0.1
+
+
+def compare_affinity(args, kv, ki, pv, pi):
+    """fused_affinity (kv, ki) against its plain version (pv, pi): values
+    within TOL; ids equal, except in near-tie slots, whose two items score
+    within 10 TOL of each other in a third (float32 elementwise) order.
+    Two items with identical inputs (catalog column, album and artist)
+    score bit-equal in both versions, where the strict-'>' rule decides:
+    their ids must match. Returns (max abs error, near-tie slots,
+    exact-tie slots)."""
+    import torch
+
+    q, packed, album, artist = args[:4]
+    fin = torch.isfinite(pv)
+    if not torch.equal(fin, torch.isfinite(kv)):
+        raise AssertionError("kernel and plain disagree on which slots "
+                             "are filled")
+    torch.testing.assert_close(kv[fin], pv[fin], atol=TOL, rtol=TOL)
+    if not torch.equal(ki[~fin], pi[~fin]):
+        raise AssertionError("ids of unfilled slots differ")
+    err = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
+    L = pv.shape[1] // 2
+    exact_ties = int((fin[:, L:] & (pv[:, :L] == pv[:, L:])).sum())
+    diff = (ki != pi) & fin
+    near = int(diff.sum())
+    if near:
+        b, slot = diff.nonzero(as_tuple=True)
+        gk, gp = ki[b, slot].long(), pi[b, slot].long()
+        same = ((packed[:, gk] == packed[:, gp]).all(0)
+                & (album[gk] == album[gp]) & (artist[gk] == artist[gp]))
+        if bool(same.any()):
+            raise AssertionError(
+                f"{int(same.sum())} ids differ between items with identical "
+                f"inputs: the earlier-block-wins rule is broken")
+        gap = (affinity_at(*args, b, gk) - affinity_at(*args, b, gp)).abs()
+        if bool((gap > TOL * 10).any()):
+            raise AssertionError(
+                f"{near} id mismatches, worst score gap {float(gap.max())}")
+    return err, near, exact_ties
+
+
+def affinity_case(gen, B, C, D, M, L, bound, dup=False):
+    """Random affinity inputs; with ``dup``, copies of one vector (and its
+    album and artist) at g, g + L, g + 3L, scaled to lead their bins."""
+    import torch
+
+    from esrecsys_tpu_torch.retrieval.fused import pack_catalog, pack_payload
+
+    items = torch.randn(M, D, generator=gen, device="cuda")
+    album = torch.randint(0, 50, (M,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    artist = torch.randint(0, 30, (M,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    if dup:
+        g = torch.arange(0, L, 2, device="cuda")
+        items[g] *= 3
+        for off in (L, 3 * L):
+            items[g + off] = items[g]
+            album[g + off] = album[g]
+            artist[g + off] = artist[g]
+    packed = pack_catalog(items, L)
+    q = torch.randn(B, C, D, generator=gen, device="cuda")
+    if dup:
+        q[0, 0] = items[0]
+    q = q.to(torch.bfloat16)
+    actx = torch.randint(0, 50, (B, C), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    artx = torch.randint(0, 30, (B, C), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    Mp = packed.shape[1]
+    return (q, packed, pack_payload(album, Mp), pack_payload(artist, Mp),
+            actx, artx)
+
+
+def check_affinity(card: str) -> float:
+    """fused_affinity against its plain version at ragged shapes and with
+    exact ties; the full eval shape is checked in the train phase."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_affinity as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    for B, C, D, M, L, bound, dup in (
+            (13, 5, 64, 100_003, 128, 100_003, False),
+            (1, 1, 64, 10_007, 128, 9_001, False),
+            (70, 5, 32, 20_011, 256, 20_011, False),
+            (64, 8, 128, 5_000, 128, 4_999, False),
+            (130, 5, 64, 100_003, 4096, 97_001, False),
+            (8, 5, 64, 100_003, 128, 100_003, True),
+            (8, 5, 64, 100_003, 4096, 100_003, True)):
+        args = affinity_case(gen, B, C, D, M, L, bound, dup)
+        kv, ki = fa.fused_affinity_cuda(*args, L, bound)
+        pv, pi = fa.fused_affinity_plain(*args, L, bound)
+        torch.cuda.synchronize()
+        err, near, exact = compare_affinity(args, kv, ki, pv, pi)
+        if dup and exact == 0:
+            raise AssertionError("the duplicate-items case holds no tie")
+        worst = max(worst, err)
+        log(f"kernel fused_affinity B={B} C={C} D={D} M={M} L={L} "
+            f"bound={bound}{' duplicated items' if dup else ''}: ok, "
+            f"max_abs_err {err:.3g}, exact-tie slots {exact} (ids equal "
+            f"there), near-tie id slots {near} [{card}]")
+    # an empty batch launches nothing
+    args = affinity_case(gen, 0, 5, 64, 1000, 128, 1000)
+    kv, _ = fa.fused_affinity_cuda(*args, 128, 1000)
+    if kv.shape != (0, 256):
+        raise AssertionError("empty fused_affinity batch is wrong")
+    return worst
+
+
+def rows_bytes(ids, dim: int) -> int:
+    """Bytes of the distinct float32 table rows ``ids`` touch."""
+    import torch
+
+    return int(torch.unique(ids).numel()) * dim * 4
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms with the 50 MB L2 cache
+    flushed before each call, as the train step finds its tables after the
+    rest of the step has streamed through the cache: the device rows of a
+    torch.profiler trace, less the flush's own rows (a bitwise NOT over
+    256 MiB of bytes, an op none of the timed functions uses). CUDA events
+    around a few-microsecond call would time the host's launch instead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+
+    def device_rows(body):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total}
+
+    flush_keys = set(device_rows(flush.bitwise_not_))
+    fn()
+
+    def body():
+        for _ in range(reps):
+            flush.bitwise_not_()
+            fn()
+
+    rows = device_rows(body)
+    total = sum(t for k, t in rows.items() if k not in flush_keys)
+    if not total:
+        raise RuntimeError("the profiler trace holds no device time")
+    return total / 1e3 / reps
+
+
+def time_kernel(kernel, plain, library):
+    """(kernel ms, plain ms, library ms) per call, L2 flushed before each."""
+    return cold_ms(kernel), cold_ms(plain), cold_ms(library)
+
+
+def affinity_overlap(model, batch, corpus_embed, corpus, fused_ids,
+                     exact_ids, chunk: int = 256) -> float:
+    """Share of the fused top-k whose affinity is at or above the exact
+    k-th affinity, both scored by one float32 function (tracks that share
+    album and artist have equal vectors, so ties count as found)."""
+    import torch
+
+    from esrecsys_tpu_torch.models.playlist import affinity_scores
+
+    found = []
+    with torch.no_grad():
+        for i in range(0, fused_ids.shape[0], chunk):
+            sl = slice(i, i + chunk)
+            actx = batch["album_context"][sl]
+            artx = batch["artist_context"][sl]
+            ctx = model.get_embeddings(actx, artx)
+
+            def score(ids):
+                return affinity_scores(ctx, corpus_embed[ids],
+                                       corpus["albums"][ids],
+                                       corpus["artists"][ids], actx, artx)
+
+            kth = score(exact_ids[sl]).amin(-1, keepdim=True)
+            found.append((score(fused_ids[sl]) >= kth).float().mean(-1))
+    return float(torch.cat(found).mean())
+
+
+def phase_train(card: str, work: str) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_affinity as fa
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.retrieval.fused import pack_payload
+    from esrecsys_tpu_torch.tools import full_scale_run as fsr
+    from esrecsys_tpu_torch.workloads import playlist as pl
+
+    dev = torch.device("cuda")
+    run = fsr.TrainRunConfig(
+        out_dir=work, steps=STEPS, batch_size=2048, max_next=32,
+        eval_every=STEPS, eval_playlists=2048, eval_fused_bins=4096,
+        log_every=10, fused=True, device="cuda")
+    kernels = {"gather_pool": gp, "scatter_add": sa, "fused_affinity": fa}
+    # ---- the main path: 20 steps, one fused eval round, export
+    for mod in kernels.values():
+        mod.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    tr = fsr.run_train(run)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {name: mod.LAUNCHES.count for name, mod in kernels.items()}
+    # ---- checks of what came out
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the training path never launched {name}")
+    res, cfg = tr["result"], tr["cfg"]
+    report = fsr.train_report(run, tr)
+    loss = res.last_train_metrics.get("train_loss", float("nan"))
+    if res.steps_run != STEPS or not np.isfinite(loss):
+        raise AssertionError(f"training: {res.steps_run} steps, loss {loss}")
+    ev = res.last_eval_metrics
+    if not ev or not all(np.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"fused eval metrics: {ev}")
+    if not os.path.exists(tr["artifact"]):
+        raise AssertionError("no trained artifact")
+    log(f"train path: {STEPS} steps of the flagship (B=2048, C=5, M=32, "
+        f"N=512 shared, bf16, momentum 0.98 dense carrier) + one fused "
+        f"eval round + export in {path_s:.1f} s; launches {launches}; "
+        f"loss of steps 11-20 {loss:.5f}; first step "
+        f"{res.first_dispatch_s:.2f} s [{card}]")
+    log(f"train throughput: {res.last_train_metrics['examples_per_sec']:.0f} "
+        f"examples/s over steps 11-20 ("
+        f"{res.last_train_metrics['ms_per_step']:.3f} ms/step, host clock); "
+        f"steady {report['steady_examples_per_s']:.0f} examples/s without "
+        f"the first step and the eval round [{card}]")
+    log(f"eval round (fused, 2048 playlists x {run.num_tracks} tracks, "
+        f"corpus embed + scan copy included): {res.eval_round_s[0] * 1e3:.1f}"
+        f" ms; recall@500 track {ev['eval_track_recall']:.5f} artist "
+        f"{ev['eval_artist_recall']:.5f} [{card}]")
+
+    # ---- fused against exact eval on the same 2,048 playlists
+    state, model = res.state, res.state.params
+    corpus = {k: torch.from_numpy(v).to(dev)
+              for k, v in fsr.synth_corpus(run).items()}
+    batch = fsr.to_device(fsr.host_batch(np.random.default_rng(999), 2048,
+                                         5, 32, run), dev)
+    aux = pl.make_corpus_embed_setup(model, cfg, corpus)(state)
+    fused_topk = pl.make_eval_topk(model, cfg, corpus)
+    exact_cfg = dataclasses.replace(cfg, eval_fused_bins=0)
+    exact_topk = pl.make_eval_topk(model, exact_cfg, corpus)
+    fused_ms = host_ms(lambda: (fused_topk(state, batch, aux),
+                                torch.cuda.synchronize()), 3)
+    fv, fi = fused_topk(state, batch, aux)
+    t_exact = time.perf_counter()
+    xv, xi = exact_topk(state, batch, aux[0])
+    torch.cuda.synchronize()
+    exact_ms = (time.perf_counter() - t_exact) * 1e3
+    overlap = affinity_overlap(model, batch, aux[0], corpus, fi, xi)
+    tracks, artists = corpus["tracks"], corpus["artists"]
+    fm = pl._hit_metrics(batch, fv, fi, tracks, artists, 500)
+    xm = pl._hit_metrics(batch, xv, xi, tracks, artists, 500)
+    log(f"eval quality: fused overlap@500 vs exact {overlap:.5f} over 2048 "
+        f"playlists (floor {QUALITY_FLOOR}); recall@500 track fused "
+        f"{float(fm['track_recall']):.5f} exact "
+        f"{float(xm['track_recall']):.5f} (diff "
+        f"{float(fm['track_recall'] - xm['track_recall']):.2e}), artist "
+        f"fused {float(fm['artist_recall']):.5f} exact "
+        f"{float(xm['artist_recall']):.5f}")
+    log(f"eval latency, 2048 playlists: fused top-500 {fused_ms:.1f} ms, "
+        f"exact {exact_ms:.1f} ms (host clock, corpus embed excluded) "
+        f"[{card}]")
+    if overlap < QUALITY_FLOOR:
+        raise AssertionError(f"eval overlap@500 {overlap} < {QUALITY_FLOOR}")
+    # where a warm fused eval round's time goes: corpus embed, scan copy,
+    # scan, candidate select, rescore, metrics
+    setup = pl.make_corpus_embed_setup(model, cfg, corpus)
+    eval_step = pl.make_eval_step(model, cfg, corpus)
+    wall, busy, top = device_breakdown(
+        lambda: (eval_step(state, batch, setup(state)),
+                 torch.cuda.synchronize()), 3)
+    if busy is None:
+        log(f"breakdown fused eval round: {wall:.1f} ms per round, device "
+            f"time not measured (no device rows in the trace) [{card}]")
+    else:
+        ops = ", ".join(f"{k[:40]} {v:.2f} ms" for k, v in top)
+        log(f"breakdown fused eval round (warm): {wall:.1f} ms per round "
+            f"under the profiler, device busy {busy:.1f} ms (idle share "
+            f"{1 - busy / wall:.2f}); largest: {ops} [{card}]")
+
+    # ---- fused_affinity at the eval's full shape
+    with torch.no_grad():
+        q = model.get_embeddings(batch["album_context"],
+                                 batch["artist_context"]).to(torch.bfloat16)
+    packed = aux[1]
+    Mp = packed.shape[1]
+    args = (q, packed, pack_payload(corpus["albums"], Mp),
+            pack_payload(corpus["artists"], Mp),
+            batch["album_context"].contiguous(),
+            batch["artist_context"].contiguous())
+    L, bound = 4096, run.num_tracks
+    kv, ki = fa.fused_affinity_cuda(*args, L, bound)
+    t_plain = time.perf_counter()
+    pv, pi = fa.fused_affinity_plain(*args, L, bound)
+    torch.cuda.synchronize()
+    aff_plain_ms = (time.perf_counter() - t_plain) * 1e3
+    aff_err, near, exact = compare_affinity(args, kv, ki, pv, pi)
+    aff_ms = cuda_ms(lambda: fa.fused_affinity_cuda(*args, L, bound), 5)
+    B, C, D = q.shape
+    aff_flops = 2 * B * C * D * bound
+    cols = -(-bound // L) * L  # catalog columns the scan reads
+    aff_bytes = cols * (D * 2 + 8) + B * C * (D * 2 + 8) + B * 2 * L * 8
+    aff_bound = max(aff_bytes / HBM_BYTES_PER_S,
+                    aff_flops / BF16_FLOPS_PER_S) * 1e3
+    aff_by = ("operations" if aff_flops / BF16_FLOPS_PER_S
+              >= aff_bytes / HBM_BYTES_PER_S else "bytes")
+    log(f"kernel fused_affinity B={B} C={C} D={D} Mp={Mp} L={L} (the eval "
+        f"batch): ok, max_abs_err {aff_err:.3g}, near-tie id slots {near}, "
+        f"exact-tie slots {exact}; {aff_ms:.3f} ms (mean of 5, CUDA events) "
+        f"against its bound {aff_bound:.3f} ms by {aff_by} "
+        f"({aff_flops:.3e} bf16 operations), plain version {aff_plain_ms:.1f}"
+        f" ms (one call, host clock) [{card}]")
+
+    # ---- K steps through the kernels against K steps through the plain
+    # versions, from one initial state with the same batches and negatives
+    feed = fsr.device_feed(run, cfg, dev)
+    batches = [next(feed) for _ in range(K_STEPS)]
+    neg_gen = torch.Generator(device=dev).manual_seed(5)
+    negs = [torch.randint(0, run.num_tracks, (512,), generator=neg_gen,
+                          device=dev, dtype=torch.int32)
+            for _ in range(K_STEPS)]
+    runs = []
+    for use_plain in (False, True):
+        m_k, s_k = pl.init_state(cfg, dev)
+        step = pl.make_sparse_train_step(m_k, cfg, corpus, seed=0)
+        ctx = plain_kernels() if use_plain else contextlib.nullcontext()
+        with ctx:
+            losses = [float(step(s_k, b, neg_ids=n)[1]["loss"])
+                      for b, n in zip(batches, negs)]
+        runs.append((s_k, losses))
+    (sk, lk), (sp, lp) = runs
+    worst = {}
+    for name, a, b, atol in (
+            ("album table", sk.params.album_embed.embedding,
+             sp.params.album_embed.embedding, TRAIN_TABLE_ATOL),
+            ("artist table", sk.params.artist_embed.embedding,
+             sp.params.artist_embed.embedding, TRAIN_TABLE_ATOL),
+            ("album momentum", sk.opt_state["album"]["momentum"],
+             sp.opt_state["album"]["momentum"], TRAIN_MOMENTUM_ATOL),
+            ("artist momentum", sk.opt_state["artist"]["momentum"],
+             sp.opt_state["artist"]["momentum"], TRAIN_MOMENTUM_ATOL)):
+        d = (a.detach() - b.detach()).abs()
+        share = float((d > 1e-6).float().mean())
+        worst[name] = (float(d.max()), share)
+        if float(d.max()) > atol or share > TRAIN_DIFF_SHARE:
+            raise AssertionError(f"{K_STEPS} steps, kernels against plain: "
+                                 f"{name} max diff {float(d.max())}, share "
+                                 f"over 1e-6 {share}")
+    if not all(np.isfinite(lk)) or abs(lk[-1] - lp[-1]) > 1e-4 * abs(lp[-1]):
+        raise AssertionError(f"losses kernels {lk} plain {lp}")
+    log(f"train kernels vs plain, {K_STEPS} steps from seed 0: losses "
+        f"{lk[-1]:.6f} / {lp[-1]:.6f}; max diff (share > 1e-6): "
+        + ", ".join(f"{k} {v[0]:.3g} ({v[1]:.2e})" for k, v in worst.items())
+        + f" [{card}]")
+
+    # ---- gather_pool and scatter_add at the step's shapes, timed
+    b0 = batches[0]
+    alb_ids = torch.remainder(torch.cat([
+        b0["album_context"].reshape(-1), b0["next_album"].reshape(-1),
+        corpus["albums"][negs[0].long()]]), cfg.album_hash_buckets).int()
+    art_ids = torch.cat([b0["artist_context"].reshape(-1),
+                         b0["next_artist"].reshape(-1),
+                         corpus["artists"][negs[0].long()]]).int()
+    timed = {"gather_pool": [], "scatter_add": []}
+    for name, table, ids in (
+            ("album", sk.params.album_embed.embedding.detach(), alb_ids),
+            ("artist", sk.params.artist_embed.embedding.detach(), art_ids)):
+        R, Dt = table.shape
+        n = ids.shape[0]
+        ids2 = ids[:, None].contiguous()
+        k = gp.gather_pool_cuda(table, ids2, False, -1)
+        if not torch.equal(k, gp.gather_pool_plain(table, ids2, False, -1)):
+            raise AssertionError(f"gather_pool differs on the {name} table")
+        distinct = rows_bytes(ids, Dt)
+        g_bytes = distinct + n * 4 + n * Dt * 4
+        timed["gather_pool"].append(time_kernel(
+            lambda: gp.gather_pool_cuda(table, ids2, False, -1),
+            lambda: gp.gather_pool_plain(table, ids2, False, -1),
+            lambda: table.index_select(0, ids)) + (
+                g_bytes / HBM_BYTES_PER_S * 1e3,))
+        upd = torch.randn(n, Dt, device="cuda") * 1e-3
+        tk, tp = table.clone(), table.clone()
+        sa.scatter_add_cuda(tk, ids, upd)
+        sa.scatter_add_plain(tp, ids, upd)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(tk, tp, rtol=TOL, atol=TOL)
+        s_bytes = n * Dt * 4 + n * 4 + 2 * distinct
+        timed["scatter_add"].append(time_kernel(
+            lambda: sa.scatter_add_cuda(tk, ids, upd),
+            lambda: sa.scatter_add_plain(tp, ids, upd),
+            lambda: tp.index_add_(0, ids, upd)) + (
+                s_bytes / HBM_BYTES_PER_S * 1e3,))
+        log(f"path shapes, {name} table ({R} x {Dt}, {n} ids, "
+            f"{distinct // (Dt * 4)} distinct), device time per call with "
+            f"the L2 cache flushed before it (profiler, 20 calls): "
+            f"gather_pool "
+            f"{timed['gather_pool'][-1][0] * 1e3:.1f} us (plain "
+            f"{timed['gather_pool'][-1][1] * 1e3:.1f}, index_select "
+            f"{timed['gather_pool'][-1][2] * 1e3:.1f}, bound "
+            f"{timed['gather_pool'][-1][3] * 1e3:.1f}); scatter_add "
+            f"{timed['scatter_add'][-1][0] * 1e3:.1f} us (plain "
+            f"{timed['scatter_add'][-1][1] * 1e3:.1f}, index_add_ "
+            f"{timed['scatter_add'][-1][2] * 1e3:.1f}, bound "
+            f"{timed['scatter_add'][-1][3] * 1e3:.1f}) [{card}]")
+
+    # ---- where one train step's time goes
+    step = pl.make_sparse_train_step(sk.params, cfg, corpus, seed=0)
+    wall, busy, top = device_breakdown(
+        lambda: (step(sk, b0, neg_ids=negs[0]), torch.cuda.synchronize()), 5)
+    if busy is None:
+        log(f"breakdown train step: {wall:.3f} ms per step, device time not "
+            f"measured (no device rows in the trace) [{card}]")
+    else:
+        ops = ", ".join(f"{k[:40]} {v * 1e3:.1f} us" for k, v in top)
+        log(f"breakdown train step: {wall:.3f} ms per step under the "
+            f"profiler, device busy {busy:.3f} ms (idle share "
+            f"{1 - busy / wall:.2f}); largest: {ops} [{card}]")
+
+    def mean(rows, i):
+        return sum(r[i] for r in rows) / len(rows)
+
+    out = {}
+    for name in ("gather_pool", "scatter_add"):
+        rows = timed[name]
+        out[name] = {"launches": launches[name], "ms": mean(rows, 0),
+                     "plain_ms": mean(rows, 1), "library_ms": mean(rows, 2),
+                     "bound_ms": mean(rows, 3), "bound_by": "bytes"}
+    out["fused_affinity"] = {
+        "launches": launches["fused_affinity"], "max_abs_err": aff_err,
+        "ms": aff_ms, "plain_ms": aff_plain_ms, "bound_ms": aff_bound,
+        "bound_by": aff_by, "library_ms": None}
+    return out
+
+
 def http_json(url: str, body=None) -> dict:
     data = None if body is None else json.dumps(body).encode()
     with urllib.request.urlopen(urllib.request.Request(url, data=data),
@@ -252,122 +834,121 @@ def overlap_at_k(svc_items, queries, fused_ids, exact_ids) -> float:
     return float(found.mean())
 
 
-def phase_main(card: str):
+def phase_main(card: str, work: str):
+    """Serve the artifact the train phase exported in ``work``."""
     import numpy as np
     import torch
 
     from esrecsys_tpu_torch.kernels import fused_scan as fs
     from esrecsys_tpu_torch.serving.server import RetrievalService, serve
     from esrecsys_tpu_torch.tools.full_scale_run import (ServingRunConfig,
-                                                         init_and_export,
                                                          serve_from_artifact,
                                                          synth_corpus)
 
-    with tempfile.TemporaryDirectory() as work:
-        cfg = ServingRunConfig(out_dir=work, fused=True, device="cuda")
-        corpus = synth_corpus(cfg)
-        fs.LAUNCHES.reset()
-        # ---- the main path: artifact -> catalog -> fused + exact serving
-        t0 = time.perf_counter()
-        init_and_export(cfg)
-        svc, report = serve_from_artifact(cfg, corpus)
-        index = svc.index
-        exact = RetrievalService(index, max_k=500, max_batch=8,
-                                 device="cuda")
-        rng = np.random.default_rng(0)
-        rows = rng.integers(0, len(index), 64)
-        vecs = index.vectors
-        queries = (vecs[rows] + rng.normal(size=(64, vecs.shape[1]))
-                   .astype(np.float32) * 0.05 * np.abs(vecs).mean())
-        f_ids, f_scores = svc.topk(queries, k=500)
-        e_ids, e_scores = exact.topk(queries, k=500)
-        httpd = serve(index, port=0, max_k=500, max_batch=8, fused=True,
-                      fused_bins=4096, device="cuda")
-        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-        thread.start()
-        try:
-            url = f"http://127.0.0.1:{httpd.server_address[1]}"
-            health = http_json(f"{url}/healthz")
-            one = http_json(f"{url}/v1/topk",
-                            {"vector": queries[0].tolist(), "k": 500})
-            by_id = http_json(f"{url}/v1/topk", {"id": "17", "k": 10,
-                                                  "exclude": ["17"]})
-            batch = http_json(f"{url}/v1/topk",
-                              {"vectors": queries[:8].tolist(), "k": 500})
-            stats = http_json(f"{url}/statsz")
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-            thread.join(timeout=30)
-        torch.cuda.synchronize()
-        main_s = time.perf_counter() - t0
-        launches = fs.LAUNCHES.count
-        # ---- checks of what came out
-        if launches <= 0:
-            raise AssertionError("the main path never launched fused_scan")
-        if health["items"] != cfg.num_tracks or health["dim"] != 64:
-            raise AssertionError(f"healthz: {health}")
-        if len(one["ids"]) != 500 or one["ids"] != list(f_ids[0]):
-            raise AssertionError("HTTP single query differs from topk")
-        if len(by_id["ids"]) != 10 or "17" in by_id["ids"]:
-            raise AssertionError(f"HTTP id query: {by_id}")
-        if [len(r) for r in batch["ids"]] != [500] * 8:
-            raise AssertionError("HTTP batch query is not (8, 500)")
-        if stats["mode"] != "fused:bins=4096" or stats["queries"] < 10:
-            raise AssertionError(f"statsz: {stats}")
-        for name, s in (("fused", f_scores), ("exact", e_scores)):
-            if s.shape != (64, 500) or not np.isfinite(s).all():
-                raise AssertionError(f"{name} scores {s.shape} not finite")
-        overlap = overlap_at_k(svc._items, queries, f_ids, e_ids)
-        log(f"main path: {cfg.num_tracks} tracks D=64 served in "
-            f"{main_s:.1f} s (embed {report['embed_catalog_s']:.2f} s, "
-            f"time to first query {report['time_to_first_query_s']:.2f} s), "
-            f"fused_scan launches {launches}, HTTP requests 5 ok [{card}]")
-        log(f"quality: fused overlap@500 vs exact {overlap:.4f} over 64 "
-            f"queries (floor {QUALITY_FLOOR})")
-        if overlap < QUALITY_FLOOR:
-            raise AssertionError(f"overlap@500 {overlap} < {QUALITY_FLOOR}")
+    cfg = ServingRunConfig(out_dir=work, fused=True, device="cuda")
+    corpus = synth_corpus(cfg)
+    fs.LAUNCHES.reset()
+    # ---- the main path: trained artifact -> catalog -> fused + exact
+    t0 = time.perf_counter()
+    svc, report = serve_from_artifact(cfg, corpus)
+    index = svc.index
+    exact = RetrievalService(index, max_k=500, max_batch=8,
+                             device="cuda")
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, len(index), 64)
+    vecs = index.vectors
+    queries = (vecs[rows] + rng.normal(size=(64, vecs.shape[1]))
+               .astype(np.float32) * 0.05 * np.abs(vecs).mean())
+    f_ids, f_scores = svc.topk(queries, k=500)
+    e_ids, e_scores = exact.topk(queries, k=500)
+    httpd = serve(index, port=0, max_k=500, max_batch=8, fused=True,
+                  fused_bins=4096, device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        health = http_json(f"{url}/healthz")
+        one = http_json(f"{url}/v1/topk",
+                        {"vector": queries[0].tolist(), "k": 500})
+        by_id = http_json(f"{url}/v1/topk", {"id": "17", "k": 10,
+                                              "exclude": ["17"]})
+        batch = http_json(f"{url}/v1/topk",
+                          {"vectors": queries[:8].tolist(), "k": 500})
+        stats = http_json(f"{url}/statsz")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = fs.LAUNCHES.count
+    # ---- checks of what came out
+    if launches <= 0:
+        raise AssertionError("the main path never launched fused_scan")
+    if health["items"] != cfg.num_tracks or health["dim"] != 64:
+        raise AssertionError(f"healthz: {health}")
+    if len(one["ids"]) != 500 or one["ids"] != list(f_ids[0]):
+        raise AssertionError("HTTP single query differs from topk")
+    if len(by_id["ids"]) != 10 or "17" in by_id["ids"]:
+        raise AssertionError(f"HTTP id query: {by_id}")
+    if [len(r) for r in batch["ids"]] != [500] * 8:
+        raise AssertionError("HTTP batch query is not (8, 500)")
+    if stats["mode"] != "fused:bins=4096" or stats["queries"] < 10:
+        raise AssertionError(f"statsz: {stats}")
+    for name, s in (("fused", f_scores), ("exact", e_scores)):
+        if s.shape != (64, 500) or not np.isfinite(s).all():
+            raise AssertionError(f"{name} scores {s.shape} not finite")
+    overlap = overlap_at_k(svc._items, queries, f_ids, e_ids)
+    log(f"serve path: {cfg.num_tracks} tracks D=64 of the trained model "
+        f"served in "
+        f"{main_s:.1f} s (embed {report['embed_catalog_s']:.2f} s, "
+        f"time to first query {report['time_to_first_query_s']:.2f} s), "
+        f"fused_scan launches {launches}, HTTP requests 5 ok [{card}]")
+    log(f"quality: fused overlap@500 vs exact {overlap:.4f} over 64 "
+        f"queries (floor {QUALITY_FLOOR})")
+    if overlap < QUALITY_FLOOR:
+        raise AssertionError(f"overlap@500 {overlap} < {QUALITY_FLOOR}")
 
-        # ---- timings at B=8 (after the counts were read)
-        q8 = queries[:8]
-        fused_ms = host_ms(lambda: svc.topk(q8, k=500), 20)
-        exact_ms = host_ms(lambda: exact.topk(q8, k=500), 20)
-        packed = svc._items_packed
-        qb = torch.from_numpy(q8).cuda().to(torch.bfloat16)
-        L, M = svc._fused_bins, len(index)
-        kernel_ms = cuda_ms(lambda: fs.fused_scan_cuda(qb, packed, L, M), 50)
-        plain_ms = cuda_ms(lambda: fs.fused_scan_plain(qb, packed, L, M), 3,
-                           warmup=1)
-        nblk = -(-M // L)
-        D = packed.shape[0]
-        moved = nblk * L * D * 2 + q8.shape[0] * D * 2 + q8.shape[0] * 2 * L * 8
-        flops = 2 * q8.shape[0] * D * nblk * L
-        bound_ms = max(moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
-        bound_by = ("bytes" if moved / HBM_BYTES_PER_S
-                    >= flops / BF16_FLOPS_PER_S else "operations")
-        log(f"latency B=8 k=500: fused topk {fused_ms:.3f} ms, exact topk "
-            f"{exact_ms:.3f} ms (median of 20, host clock) [{card}]")
-        log(f"kernel fused_scan B=8 D={D} Mp={packed.shape[1]} L={L}: "
-            f"{kernel_ms * 1e3:.1f} us (mean of 50, CUDA events), bound "
-            f"{bound_ms * 1e3:.1f} us by {bound_by} ({moved / 1e6:.1f} MB), "
-            f"plain version {plain_ms:.3f} ms [{card}]")
-        # where a served call's time goes, from a torch.profiler trace
-        for name, svc_ in (("fused", svc), ("exact", exact)):
-            wall, busy, top = device_breakdown(
-                lambda: svc_.topk(q8, k=500), 20)
-            if busy is None:
-                log(f"breakdown {name} topk B=8: {wall:.3f} ms per call, "
-                    f"device time not measured (no device rows in the "
-                    f"trace) [{card}]")
-                continue
-            ops = ", ".join(f"{k[:40]} {v * 1e3:.1f} us" for k, v in top)
-            log(f"breakdown {name} topk B=8: {wall:.3f} ms per call under "
-                f"the profiler, device busy {busy:.3f} ms (idle share "
-                f"{1 - busy / wall:.2f}); largest: {ops} [{card}]")
-        return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "fused_topk_ms": fused_ms, "exact_topk_ms": exact_ms,
-                "overlap": overlap}
+    # ---- timings at B=8 (after the counts were read)
+    q8 = queries[:8]
+    fused_ms = host_ms(lambda: svc.topk(q8, k=500), 20)
+    exact_ms = host_ms(lambda: exact.topk(q8, k=500), 20)
+    packed = svc._items_packed
+    qb = torch.from_numpy(q8).cuda().to(torch.bfloat16)
+    L, M = svc._fused_bins, len(index)
+    kernel_ms = cuda_ms(lambda: fs.fused_scan_cuda(qb, packed, L, M), 50)
+    plain_ms = cuda_ms(lambda: fs.fused_scan_plain(qb, packed, L, M), 3,
+                       warmup=1)
+    nblk = -(-M // L)
+    D = packed.shape[0]
+    moved = nblk * L * D * 2 + q8.shape[0] * D * 2 + q8.shape[0] * 2 * L * 8
+    flops = 2 * q8.shape[0] * D * nblk * L
+    bound_ms = max(moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    bound_by = ("bytes" if moved / HBM_BYTES_PER_S
+                >= flops / BF16_FLOPS_PER_S else "operations")
+    log(f"latency B=8 k=500: fused topk {fused_ms:.3f} ms, exact topk "
+        f"{exact_ms:.3f} ms (median of 20, host clock) [{card}]")
+    log(f"kernel fused_scan B=8 D={D} Mp={packed.shape[1]} L={L}: "
+        f"{kernel_ms * 1e3:.1f} us (mean of 50, CUDA events), bound "
+        f"{bound_ms * 1e3:.1f} us by {bound_by} ({moved / 1e6:.1f} MB), "
+        f"plain version {plain_ms:.3f} ms [{card}]")
+    # where a served call's time goes, from a torch.profiler trace
+    for name, svc_ in (("fused", svc), ("exact", exact)):
+        wall, busy, top = device_breakdown(
+            lambda: svc_.topk(q8, k=500), 20)
+        if busy is None:
+            log(f"breakdown {name} topk B=8: {wall:.3f} ms per call, "
+                f"device time not measured (no device rows in the "
+                f"trace) [{card}]")
+            continue
+        ops = ", ".join(f"{k[:40]} {v * 1e3:.1f} us" for k, v in top)
+        log(f"breakdown {name} topk B=8: {wall:.3f} ms per call under "
+            f"the profiler, device busy {busy:.3f} ms (idle share "
+            f"{1 - busy / wall:.2f}); largest: {ops} [{card}]")
+    return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "fused_topk_ms": fused_ms, "exact_topk_ms": exact_ms,
+            "overlap": overlap}
 
 
 def main() -> int:
@@ -383,7 +964,7 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     try:
-        from esrecsys_tpu_torch.kernels import build
+        import esrecsys_tpu_torch.kernels.build  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the esrecsys_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
@@ -397,26 +978,41 @@ def main() -> int:
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} "
             f"count {torch.cuda.device_count()}")
-        t0 = time.perf_counter()
-        build.load_library("fused_scan")
-        log(f"build fused_scan: {time.perf_counter() - t0:.1f} s "
-            f"(nvcc {build.build_seconds.get('fused_scan', 0.0):.1f} s)")
-        for line in build.build_logs.get("fused_scan", "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        phase_build()
         max_err = phase_kernels(card)
-        main_res = phase_main(card)
+        g_err, s_err = check_gather_scatter(card)
+        a_err = check_affinity(card)
+        with tempfile.TemporaryDirectory() as work:
+            train_res = phase_train(card, work)
+            main_res = phase_main(card, work)
     except Exception:
         traceback.print_exc()
         return 1
-    log(json.dumps({"kernels": [{
+    train_res["gather_pool"]["max_abs_err"] = g_err
+    train_res["scatter_add"]["max_abs_err"] = s_err
+    aff = train_res["fused_affinity"]
+    aff["max_abs_err"] = max(a_err, aff["max_abs_err"])
+    rows = [{
         "name": "fused_scan", "route": "cuda",
         "source": "esrecsys_tpu_torch/csrc/fused_scan.cu",
         "replaces": "esrecsys_tpu/retrieval/fused.py:191",
         "launches": main_res["launches"], "max_abs_err": max_err,
         "ms": main_res["ms"], "plain_ms": main_res["plain_ms"],
         "bound_ms": main_res["bound_ms"], "bound_by": main_res["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}]
+    for name, replaces in (
+            ("gather_pool", "esrecsys_tpu/ops/lookup.py:34"),
+            ("scatter_add", "esrecsys_tpu/ops/scatter.py:74"),
+            ("fused_affinity", "esrecsys_tpu/retrieval/fused.py:453")):
+        r = train_res[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"esrecsys_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

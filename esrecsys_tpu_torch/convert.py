@@ -1,5 +1,5 @@
-"""Carry parameters between the JAX package's nested trees and PyTorch
-state dicts.
+"""Carry parameters and train states between the JAX package's nested
+trees and PyTorch state dicts.
 
 The JAX tree of ``PlaylistModel`` is ``{"album_embed": {"embedding": a},
 "artist_embed": {"embedding": b}}``; the port's state dict names the same
@@ -44,3 +44,38 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]
             node = node.setdefault(p, {})
         node[parts[-1]] = value.detach().cpu().numpy()
     return tree
+
+
+def _optax_trace(opt_state):
+    """The momentum tree of an optax SGD state, or None (no momentum)."""
+    parts = opt_state if isinstance(opt_state, tuple) else (opt_state,)
+    for part in parts:
+        trace = getattr(part, "trace", None)
+        if trace is not None:
+            return trace
+    return None
+
+
+def state_from_jax(jax_state, cfg, device="cpu"):
+    """A JAX playlist ``TrainState`` -> the port's ``TrainState`` for the
+    same ``PlaylistConfig`` fields: params, ``step``, and the optimizer
+    state. The row-sparse step's dense momentum carrier
+    (``{"album": {"momentum"}, "artist": {"momentum"}}``) is copied as it
+    is; the dense step's optax trace becomes the SGD momentum buffers."""
+    from esrecsys_tpu_torch.workloads.playlist import init_state
+
+    model, state = init_state(cfg, device)
+    model.load_state_dict(params_from_jax(jax_state.params))
+    state.step = int(np.asarray(jax_state.step))
+    if cfg.sparse_updates and cfg.momentum:
+        for table in ("album", "artist"):
+            state.opt_state[table]["momentum"].copy_(torch.from_numpy(
+                np.array(jax_state.opt_state[table]["momentum"])))
+    elif not cfg.sparse_updates:
+        trace = _optax_trace(jax_state.opt_state)
+        if trace is not None and cfg.momentum:
+            bufs = params_from_jax(trace)
+            for name, p in model.named_parameters():
+                state.opt_state.state[p]["momentum_buffer"] = (
+                    bufs[name].to(p.device).clone())
+    return state

@@ -5,8 +5,10 @@ Each ``csrc/<name>.cu`` compiles, at its first use in a process, with
 into ``_build/lib<name>-<hash>.so`` beside the package, where ``<hash>``
 covers the source and the flags, so an edited source never loads a stale
 library. A plain C interface keeps the build to seconds; a source that
-includes PyTorch's headers takes minutes. The compiler's output (register
-and shared-memory use, from ``-Xptxas -v``) is kept in ``build_logs``.
+includes PyTorch's headers takes minutes. :func:`build_all` starts one
+``nvcc`` per source at once and waits for all of them. The compiler's
+output (register and shared-memory use, from ``-Xptxas -v``) is kept in
+``build_logs``.
 """
 
 from __future__ import annotations
@@ -17,9 +19,8 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, List, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -29,9 +30,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-# compiler output and build time, by source name
+# compiler output, by source name
 build_logs: Dict[str, str] = {}
-build_seconds: Dict[str, float] = {}
+
+
+class LaunchCounter:
+    """Launches of one kernel: ``count`` grows by one per launch."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+def kernel_sources() -> List[str]:
+    """Names of every CUDA source of the package (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
 def find_nvcc() -> str:
@@ -46,29 +61,51 @@ def find_nvcc() -> str:
                        "host with the CUDA toolkit")
 
 
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all(names: Iterable[str]) -> None:
+    """Compile every named source that has no current library, all
+    ``nvcc`` processes at once, then load them. Raises on the first
+    failed build, after every compiler has exited."""
+    with _lock:
+        jobs = []
+        for name in names:
+            if name in _libs:
+                continue
+            src, out = _target(name)
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.Popen(
+                    [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                jobs.append((name, src, out, tmp, proc))
+            else:
+                jobs.append((name, src, out, None, None))
+        failed = []
+        for name, src, out, tmp, proc in jobs:
+            if proc is None:
+                continue
+            log_text, _ = proc.communicate()
+            build_logs[name] = log_text
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {src} (exit "
+                              f"{proc.returncode}):\n{log_text}")
+            else:
+                os.replace(tmp, out)  # atomic publish
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, _, out, _, _ in jobs:
+            _libs[name] = ctypes.CDLL(str(out))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
-    with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True)
-            build_seconds[name] = time.perf_counter() - t0
-            build_logs[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {src} (exit {proc.returncode}):\n"
-                    f"{build_logs[name]}")
-            os.replace(tmp, out)  # atomic publish
-        lib = ctypes.CDLL(str(out))
-        _libs[name] = lib
-        return lib
+    build_all([name])
+    return _libs[name]

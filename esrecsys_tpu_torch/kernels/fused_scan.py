@@ -20,21 +20,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from esrecsys_tpu_torch.kernels.build import load_library
+from esrecsys_tpu_torch.kernels.build import LaunchCounter, load_library
 
 NEG_INF = float("-inf")
 SUPPORTED_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
-
-
-class LaunchCounter:
-    """Launches of one kernel: ``count`` grows by one per launch."""
-
-    def __init__(self) -> None:
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
 
 LAUNCHES = LaunchCounter()
 

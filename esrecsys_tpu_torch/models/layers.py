@@ -10,6 +10,7 @@ from torch import nn
 
 from esrecsys_tpu_torch.core.device import pad_to_multiple
 from esrecsys_tpu_torch.ops import guards
+from esrecsys_tpu_torch.ops.lookup import gather_rows
 
 
 class TableEmbed(nn.Module):
@@ -23,7 +24,10 @@ class TableEmbed(nn.Module):
     Lookup with the guard ``off`` follows ``jnp.take``'s default mode, not
     raw indexing (which is a device-side assert on CUDA): negative ids in
     ``[-R, 0)`` wrap to ``id + R`` and any other id outside ``[0, R)``
-    returns a NaN row, where R is the PADDED row count.
+    returns a NaN row, where R is the PADDED row count. Rows are read
+    through :func:`esrecsys_tpu_torch.ops.lookup.gather_rows` (the row
+    gather kernel on the card), so the lookup is differentiable in the
+    table with a row-scatter backward.
     """
 
     def __init__(self, num_embeddings: int, features: int,
@@ -47,6 +51,7 @@ class TableEmbed(nn.Module):
         ids = ids.to(torch.int64)
         wrapped = torch.where(ids < 0, ids + rows, ids)
         outside = (wrapped < 0) | (wrapped >= rows)
-        out = table[torch.where(outside, 0, wrapped)]
+        flat = torch.where(outside, 0, wrapped).reshape(-1)
+        out = gather_rows(table, flat).reshape(*ids.shape, self.features)
         return torch.where(outside[..., None],
                            torch.full_like(out, float("nan")), out)

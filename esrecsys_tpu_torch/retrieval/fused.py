@@ -9,8 +9,13 @@ of the k winners. A true top-k item is lost only when two higher-scoring
 items share its bin: about C(k,3)/L^2 items per query for score-random
 item order (about 1.2 of 500 at k=500, L=4096).
 
+:func:`binned_affinity_candidates` is the full-corpus eval's variant: the
+playlist-affinity score (max over context slots plus the album and artist
+membership boosts) folded into the same per-bin top-2
+(:mod:`esrecsys_tpu_torch.kernels.fused_affinity`).
+
 Not ported yet: the int8 catalog (``item_scales``) branch used by quantized
-serving, the catalog-sharded path, and the affinity kernel of the eval.
+serving and the catalog-sharded path.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from esrecsys_tpu_torch.core.device import pad_to_multiple
+from esrecsys_tpu_torch.kernels.fused_affinity import fused_affinity
 from esrecsys_tpu_torch.kernels.fused_scan import SUPPORTED_DIMS, fused_scan
 from esrecsys_tpu_torch.retrieval.mips import (NEG_INF, Count, pad_topk,
                                                topk_lower_index_first,
@@ -128,3 +134,45 @@ def binned_topk_over_matrix(
     exact = torch.where(torch.isfinite(bvals), exact, NEG_INF)
     out_vals, order = topk_lower_index_first(exact, k_eff)
     return pad_topk(out_vals, torch.gather(cand, -1, order), k)
+
+
+def pack_payload(values: torch.Tensor, padded: int) -> torch.Tensor:
+    """(M,) per-item int ids -> the scan's (Mp,) int32 payload; padding
+    columns hold -2, as the reference pads them (never a context id)."""
+    out = torch.full((padded,), -2, dtype=torch.int32, device=values.device)
+    out[:values.shape[0]] = values.to(torch.int32)
+    return out
+
+
+def binned_affinity_candidates(
+    ctx_embed: torch.Tensor,     # (B, C, D) per-slot context embeddings
+    items_packed: torch.Tensor,  # (D, Mp) bf16 from pack_catalog
+    item_album: torch.Tensor,    # (M,) album id per catalog row
+    item_artist: torch.Tensor,   # (M,)
+    album_ctx: torch.Tensor,     # (B, C) membership-boost id sets
+    artist_ctx: torch.Tensor,    # (B, C)
+    num_items: int,
+    num_bins: int = 4096,
+    valid_count: Count = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-bin top-2 of the playlist affinity score ``max_c ctx_c . item
+    + 0.1 [album in ctx] + 0.1 [artist in ctx]``, fused into the scan:
+    (vals (B, 2L) float32, ids (B, 2L) int32). Rows at or past
+    ``min(valid_count, num_items)`` score -inf. The context is cast to bf16
+    as the reference does. The kernel tiles the queries itself (64 per
+    CTA, ragged B allowed), so the reference's ``query_chunk`` and its -1
+    padding of context ids have no counterpart here."""
+    B, C, D = ctx_embed.shape
+    L = max(128, pad_to_multiple(num_bins, 128))
+    padded = items_packed.shape[1]
+    if items_packed.shape[0] != D or padded % L:
+        raise ValueError(
+            f"items_packed {tuple(items_packed.shape)} does not match dim "
+            f"{D} / num_bins {L}; build it with pack_catalog(items, "
+            f"num_bins={L})")
+    return fused_affinity(
+        ctx_embed.to(torch.bfloat16).contiguous(), items_packed,
+        pack_payload(item_album, padded), pack_payload(item_artist, padded),
+        album_ctx.to(torch.int32).contiguous(),
+        artist_ctx.to(torch.int32).contiguous(), L,
+        valid_bound(num_items, valid_count))

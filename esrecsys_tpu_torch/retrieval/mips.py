@@ -1,5 +1,6 @@
 """Exact maximum-inner-product search (counterpart of
-``esrecsys_tpu/retrieval/mips.py`` ``topk_over_matrix``).
+``esrecsys_tpu/retrieval/mips.py``: ``topk_over_matrix`` and the
+streaming ``chunked_topk`` / ``chunked_grouped_topk`` of the eval).
 
 The reference streams the catalog with a group-max prefilter because
 ``lax.top_k`` costs about a nanosecond per element on the TPU. The port
@@ -12,7 +13,7 @@ group. This path is the quality yardstick of every approximate mode.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -59,6 +60,7 @@ def valid_bound(num_items: int, valid_count: Count) -> int:
     return max(0, min(int(valid_count), num_items))
 
 
+
 def topk_over_matrix(
     queries: torch.Tensor,   # (B, D) float32
     items: torch.Tensor,     # (M, D) float32
@@ -95,3 +97,84 @@ def topk_over_matrix(
     vals, idxs = torch.gather(vals, -1, order), torch.gather(idxs, -1, order)
     vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
     return pad_topk(vals, torch.gather(idxs, -1, order), k)
+
+
+def chunked_topk(
+    score_block_fn: Callable[[int], torch.Tensor],
+    num_items: int,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streaming top-k over a virtual (B, num_items) score matrix:
+    ``score_block_fn(start)`` gives the (B, S) scores of items
+    ``[start, start + S)`` (the caller pads its catalog so every block is
+    full; rows at or past ``num_items`` are masked to -inf here). Returns (values (B, k), ids (B, k) int64), sorted
+    descending with equal scores by ascending id as ``lax.top_k`` orders
+    them; a k past the catalog pads with (-inf, 0)."""
+    k_eff = min(k, num_items)
+    vals = idxs = None
+    start = 0
+    while start < num_items:
+        scores = score_block_fn(start)
+        width = scores.shape[-1]
+        item = start + torch.arange(width, device=scores.device)
+        scores = torch.where(item < num_items, scores, NEG_INF)
+        if vals is None:
+            vals = scores.new_full(scores.shape[:-1] + (k_eff,), NEG_INF)
+            idxs = torch.zeros(vals.shape, dtype=torch.int64,
+                               device=scores.device)
+        vals, sel = topk_lower_index_first(
+            torch.cat([vals, scores], dim=-1), k_eff)
+        idxs = torch.gather(torch.cat([idxs, item.expand_as(scores)], -1),
+                            -1, sel)
+        start += width
+    return pad_topk(vals, idxs, k)
+
+
+def chunked_grouped_topk(
+    score_block_fn: Callable[[int], torch.Tensor],
+    score_items_fn: Callable[[torch.Tensor], torch.Tensor],
+    num_items: int,
+    k: int,
+    group: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact streaming top-k with a group-max prefilter (the reference's
+    ``chunked_grouped_topk``): phase 1 keeps the top-k groups of
+    ``group`` consecutive items by group max, phase 2 rescores their
+    members with ``score_items_fn`` ((B, n) item ids -> (B, n) scores) and
+    takes the final top-k. Any group holding a true top-k item has a
+    group max at least that item's score, so the k best groups cover the
+    top k when both phases score alike. Returns (values (B, k), ids
+    (B, k) int64) as :func:`chunked_topk`."""
+    gvals = gidxs = None
+    start = 0
+    while start < num_items:
+        scores = score_block_fn(start)
+        width = scores.shape[-1]
+        if width % group:
+            raise ValueError(f"block width {width} not divisible by group "
+                             f"{group}")
+        item = start + torch.arange(width, device=scores.device)
+        scores = torch.where(item < num_items, scores, NEG_INF)
+        gmax = scores.reshape(scores.shape[:-1] + (width // group, group)
+                              ).amax(-1)
+        gid = (start // group) + torch.arange(width // group,
+                                              device=scores.device)
+        if gvals is None:
+            num_groups = -(-num_items // width) * (width // group)
+            kg = min(k, num_groups)
+            gvals = gmax.new_full(gmax.shape[:-1] + (kg,), NEG_INF)
+            # distinct out-of-range group ids: a -inf init slot that
+            # survives masks out in the rescore instead of repeating group 0
+            gidxs = (num_groups + torch.arange(kg, device=scores.device)
+                     ).expand_as(gvals)
+        gvals, sel = topk_lower_index_first(torch.cat([gvals, gmax], -1), kg)
+        gidxs = torch.gather(torch.cat([gidxs, gid.expand_as(gmax)], -1),
+                             -1, sel)
+        start += width
+    cand = (gidxs[..., :, None] * group
+            + torch.arange(group, device=gidxs.device))
+    cand = cand.reshape(cand.shape[:-2] + (-1,))
+    cand_scores = score_items_fn(cand.clamp(max=num_items - 1))
+    cand_scores = torch.where(cand < num_items, cand_scores, NEG_INF)
+    vals, sel = topk_lower_index_first(cand_scores, min(k, num_items))
+    return pad_topk(vals, torch.gather(cand, -1, sel), k)
