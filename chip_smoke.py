@@ -11,7 +11,12 @@ the result line:
                 source, all started together;
   3. kernels  - each kernel against its plain PyTorch version on the card,
                 at ragged shapes, edge cases (ties, one repeated id, empty
-                batches) and the main path's full shapes;
+                batches) and the main path's full shapes: the int8 fused
+                scan at B=8, 13 and 64 over the full 2,265,088-column
+                catalog with planted copies of one vector, the
+                shared-memory scatter against its plain version and
+                scatter_add at the album table (and its refusal of the
+                artist table);
   4. train    - the main path's training half: the quality flagship
                 (feature_size 32, 100,000 album buckets, 295,861 artists,
                 B=2048, C=5, M=32, a shared pool of 512 negatives,
@@ -28,11 +33,22 @@ the result line:
                 served top-500 by the fused and the exact RetrievalService,
                 64 queries through topk and several HTTP requests through
                 serve(port=0); overlap@500 of fused against exact, timings,
-                and a torch.profiler breakdown of one served call.
+                and a torch.profiler breakdown of one served call;
+  6. int8     - the same catalog served in the four int8 modes (int8,
+                int8+r8, fused int8, fused int8+r8) and one HTTP request
+                through serve(fused, quantized, rescore_int8); the device
+                quantizer against its numpy twin over the whole catalog,
+                overlap@500 of each mode against exact, B=8 latency and a
+                breakdown of each;
+  7. tool     - the port's scatter_attempt (shared-memory scatter,
+                scatter_add, index_add_ at the album table and a half-size
+                one), then the shared-memory scatter timed at the album
+                table.
 
-Each main-path phase sets the launch counts to 0 just before it and reads
-them just after. The second-to-last line is the kernel table as JSON, the
-last line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
+Each main-path phase (train, serve, int8, tool) sets the launch counts to
+0 just before it and reads them just after. A line gives the seconds each
+phase took. The second-to-last line is the kernel table as JSON, the last
+line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
@@ -54,6 +70,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor rate
 TOL = 1e-5                    # kernel vs plain: absolute and relative
 QUALITY_FLOOR = 0.99          # fused overlap@500 against exact
+INT8_FLOOR = 0.98             # int8 modes' overlap@500 against exact
 POOL_TOL = 1e-6               # pooled lookup: K float32 rows in two orders
 # 76,288 float32 adds into one row in two orders: partial sums reach about
 # 3, so the two sums may part by about sqrt(n) float32 ulps of 3
@@ -137,13 +154,16 @@ def device_breakdown(fn, reps: int):
     return wall_ms, sum(r[1] for r in rows), rows[:4]
 
 
-def compare_candidates(q, packed, kv, ki, pv, pi):
-    """Kernel (kv, ki) against plain (pv, pi) candidates. Values agree
-    within TOL. Ids agree, except in slots whose two competing items score
-    apart by a nonzero gap within TOL (a different summation order may flip
-    such a near-tie); where the two score bit-equal (copies of one vector)
-    the strict-'>' rule decides, so the ids must match. Returns (max abs
-    error, count of near-tie slots, count of slots holding an exact tie)."""
+def compare_top2(kv, ki, pv, pi, identical, score, near_tol):
+    """Kernel (kv, ki) against plain (pv, pi) per-bin top-2 candidates.
+    Values agree within TOL. Ids agree, except in near-tie slots whose two
+    items score within ``near_tol(score)`` of each other in a third
+    (float32 elementwise) order, ``score(b, g)``: another summation order
+    may flip such a near-tie. Two items with identical inputs
+    (``identical(gk, gp)``) score bit-equal in both versions, where the
+    strict-'>' rule decides, so their ids must match. A zero gap in the
+    third order proves no such tie. Returns (max abs error, near-tie
+    slots, slots holding an exact tie)."""
     import torch
 
     fin = torch.isfinite(pv)
@@ -160,18 +180,33 @@ def compare_candidates(q, packed, kv, ki, pv, pi):
     near = int(diff.sum())
     if near:
         b, slot = diff.nonzero(as_tuple=True)
-        qf = q.float()[b]
-        s_k = (qf * packed[:, ki[b, slot].long()].T.float()).sum(-1)
-        s_p = (qf * packed[:, pi[b, slot].long()].T.float()).sum(-1)
-        gap = (s_k - s_p).abs()
-        if bool((gap == 0).any()):
+        gk, gp = ki[b, slot].long(), pi[b, slot].long()
+        same = identical(gk, gp)
+        if bool(same.any()):
             raise AssertionError(
-                f"{int((gap == 0).sum())} ids differ between items that "
-                f"score bit-equal: the earlier-block-wins rule is broken")
-        if bool((gap > TOL + TOL * s_p.abs()).any()):
+                f"{int(same.sum())} ids differ between items with identical "
+                f"inputs: the earlier-block-wins rule is broken")
+        s_p = score(b, gp)
+        gap = (score(b, gk) - s_p).abs()
+        if bool((gap > near_tol(s_p)).any()):
             raise AssertionError(
                 f"{near} id mismatches, worst score gap {float(gap.max())}")
     return err, near, exact_ties
+
+
+def compare_candidates(q, packed, kv, ki, pv, pi, scales=None):
+    """fused_scan (bf16 ``packed``) or fused_scan_int8 (int8 ``packed``
+    with its ``scales``) against its plain version (compare_top2)."""
+    def identical(gk, gp):
+        same = (packed[:, gk] == packed[:, gp]).all(0)
+        return same if scales is None else same & (scales[gk] == scales[gp])
+
+    def score(b, g):
+        s = (q.float()[b] * packed[:, g].T.float()).sum(-1)
+        return s if scales is None else s * scales[g]
+
+    return compare_top2(kv, ki, pv, pi, identical, score,
+                        lambda s: TOL + TOL * s.abs())
 
 
 def phase_kernels(card: str) -> float:
@@ -367,42 +402,18 @@ def affinity_at(q, packed, album, artist, actx, artx, b, g):
 
 
 def compare_affinity(args, kv, ki, pv, pi):
-    """fused_affinity (kv, ki) against its plain version (pv, pi): values
-    within TOL; ids equal, except in near-tie slots, whose two items score
-    within 10 TOL of each other in a third (float32 elementwise) order.
-    Two items with identical inputs (catalog column, album and artist)
-    score bit-equal in both versions, where the strict-'>' rule decides:
-    their ids must match. Returns (max abs error, near-tie slots,
-    exact-tie slots)."""
-    import torch
+    """fused_affinity against its plain version (compare_top2): identical
+    inputs are a catalog column with its album and artist; near-tie items
+    score within 10 TOL in a third order."""
+    _, packed, album, artist = args[:4]
 
-    q, packed, album, artist = args[:4]
-    fin = torch.isfinite(pv)
-    if not torch.equal(fin, torch.isfinite(kv)):
-        raise AssertionError("kernel and plain disagree on which slots "
-                             "are filled")
-    torch.testing.assert_close(kv[fin], pv[fin], atol=TOL, rtol=TOL)
-    if not torch.equal(ki[~fin], pi[~fin]):
-        raise AssertionError("ids of unfilled slots differ")
-    err = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
-    L = pv.shape[1] // 2
-    exact_ties = int((fin[:, L:] & (pv[:, :L] == pv[:, L:])).sum())
-    diff = (ki != pi) & fin
-    near = int(diff.sum())
-    if near:
-        b, slot = diff.nonzero(as_tuple=True)
-        gk, gp = ki[b, slot].long(), pi[b, slot].long()
-        same = ((packed[:, gk] == packed[:, gp]).all(0)
+    def identical(gk, gp):
+        return ((packed[:, gk] == packed[:, gp]).all(0)
                 & (album[gk] == album[gp]) & (artist[gk] == artist[gp]))
-        if bool(same.any()):
-            raise AssertionError(
-                f"{int(same.sum())} ids differ between items with identical "
-                f"inputs: the earlier-block-wins rule is broken")
-        gap = (affinity_at(*args, b, gk) - affinity_at(*args, b, gp)).abs()
-        if bool((gap > TOL * 10).any()):
-            raise AssertionError(
-                f"{near} id mismatches, worst score gap {float(gap.max())}")
-    return err, near, exact_ties
+
+    return compare_top2(kv, ki, pv, pi, identical,
+                        lambda b, g: affinity_at(*args, b, g),
+                        lambda s: TOL * 10)
 
 
 def affinity_case(gen, B, C, D, M, L, bound, dup=False):
@@ -475,6 +486,120 @@ def check_affinity(card: str) -> float:
     return worst
 
 
+def int8_case(gen, M: int, D: int, L: int, dup: bool):
+    """A random int8 catalog (codes, scales) of M items; with ``dup``,
+    copies of one vector at g, g + L, g + 3L, scaled to lead their bins."""
+    import torch
+
+    from esrecsys_tpu_torch.retrieval.fused import pack_catalog_int8
+
+    items = torch.randn(M, D, generator=gen, device="cuda")
+    if dup:
+        g = torch.arange(0, L, 2, device="cuda")
+        items[g] *= 3
+        items[g + L] = items[g]
+        items[g + 3 * L] = items[g]
+    codes, scales = pack_catalog_int8(items, L)
+    return items, codes, scales
+
+
+def check_fused_int8(card: str) -> float:
+    """fused_scan_int8 against its plain version: ragged catalogs with a
+    bound and a mask, the kernel's four dims, planted exact ties, and the
+    full 2,265,088-column catalog at B=8, 13 and 64."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_scan as fs
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    cases = [(D, 10_007, 128, False, (13,)) for D in (16, 32, 128)]
+    cases += [(64, 100_003, L, dup, (1, 8, 13))
+              for L in (128, 4096) for dup in (False, True)]
+    cases.append((64, 2_262_292, 4096, True, (8, 13, 64)))
+    for D, M, L, dup, batches in cases:
+        items, codes, scales = int8_case(gen, M, D, L, dup)
+        Mp = codes.shape[1]
+        mask = torch.rand(Mp, generator=gen, device="cuda") > 0.3
+        for B in batches:
+            q = torch.randn(B, D, generator=gen, device="cuda")
+            if dup:
+                q[0] = items[0]
+            q = q.to(torch.bfloat16)
+            runs = ((M, None),) if M > 1_000_000 else ((M, None),
+                                                        (M - 3_001, mask))
+            for bound, msk in runs:
+                kv, ki = fs.fused_scan_int8_cuda(q, codes, scales, L, bound,
+                                                 msk)
+                pv, pi = fs.fused_scan_int8_plain(q, codes, scales, L, bound,
+                                                  msk)
+                torch.cuda.synchronize()
+                err, near, exact = compare_candidates(
+                    q, codes, kv, ki, pv, pi, scales)
+                if dup and exact == 0:
+                    raise AssertionError("the duplicate-items case holds no "
+                                         "tie")
+                worst = max(worst, err)
+                log(f"kernel fused_scan_int8 B={B} D={D} M={M} L={L} "
+                    f"bound={bound} mask={msk is not None}"
+                    f"{' duplicated items' if dup else ''}: ok, max_abs_err "
+                    f"{err:.3g}, exact-tie slots {exact} (ids equal there), "
+                    f"near-tie id slots {near} [{card}]")
+        del items, codes, scales
+    return worst
+
+
+def check_smem_scatter(card: str):
+    """smem_scatter against its plain version at ragged shapes with dropped
+    out-of-range ids, against its plain version and scatter_add at the
+    album table with the step's 76,288 ids, with every id on one row, and
+    its refusal of the artist table. Returns (max err, pile-up err)."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.kernels import smem_scatter as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    err = 0.0
+    for D, R, n in ((3, 50_003, 777), (32, 50_003, 1), (64, 50_003, 76_288),
+                    (32, 100_096, 76_288)):
+        table = torch.randn(R, D, generator=gen, device="cuda")
+        ids = torch.randint(-2, R + 2, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        upd = torch.randn(n, D, generator=gen, device="cuda") * 1e-3
+        k = ss.smem_scatter_cuda(table.clone(), ids, upd)
+        p = ss.smem_scatter_plain(table.clone(), ids, upd)
+        a = sa.scatter_add_cuda(table.clone(), ids, upd)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(k, p, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(k, a, rtol=TOL, atol=TOL)
+        err = max(err, float((k - p).abs().max()))
+    # every id equal: 76,288 updates pile onto one row of the album table
+    table = torch.randn(100_096, 32, generator=gen, device="cuda")
+    upd = torch.randn(76_288, 32, generator=gen, device="cuda") * 1e-2
+    same = torch.full((76_288,), 7, dtype=torch.int32, device="cuda")
+    k = ss.smem_scatter_cuda(table.clone(), same, upd)
+    p = ss.smem_scatter_plain(table.clone(), same, upd)
+    torch.cuda.synchronize()
+    pile = float((k - p).abs().max())
+    if pile > PILEUP_ATOL or not torch.equal(
+            torch.cat([k[:7], k[8:]]), torch.cat([table[:7], table[8:]])):
+        raise AssertionError(f"smem_scatter pile-up: max err {pile}")
+    try:
+        ss.smem_scatter_cuda(torch.zeros(295_936, 32, device="cuda"), same,
+                             upd)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("smem_scatter took the artist table")
+    log(f"kernel smem_scatter: D in (3, 32, 64), n in (1, 777, 76288) with "
+        f"dropped out-of-range ids, the album table against scatter_add: "
+        f"ok, max_abs_err {err:.3g}; 76,288 updates on one row: max_abs_err "
+        f"{pile:.3g} (bound {PILEUP_ATOL}); artist table refused: "
+        f"{refused} [{card}]")
+    return err, pile
+
+
 def rows_bytes(ids, dim: int) -> int:
     """Bytes of the distinct float32 table rows ``ids`` touch."""
     import torch
@@ -487,33 +612,27 @@ def cold_ms(fn, reps: int = 20) -> float:
     flushed before each call, as the train step finds its tables after the
     rest of the step has streamed through the cache: the device rows of a
     torch.profiler trace, less the flush's own rows (a bitwise NOT over
-    256 MiB of bytes, an op none of the timed functions uses). CUDA events
-    around a few-microsecond call would time the host's launch instead."""
+    256 MiB of bytes, an op none of the timed functions uses, found by its
+    name). CUDA events around a few-microsecond call would time the host's
+    launch instead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-
-    def device_rows(body):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            body()
-            torch.cuda.synchronize()
-        return {e.key: e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total}
-
-    flush_keys = set(device_rows(flush.bitwise_not_))
     fn()
-
-    def body():
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             flush.bitwise_not_()
             fn()
-
-    rows = device_rows(body)
-    total = sum(t for k, t in rows.items() if k not in flush_keys)
+        torch.cuda.synchronize()
+    rows = {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+    flushes = [k for k in rows if "bitwise_not" in k]
+    if not flushes:
+        raise RuntimeError("the profiler trace holds no flush rows")
+    total = sum(t for k, t in rows.items() if k not in flushes)
     if not total:
         raise RuntimeError("the profiler trace holds no device time")
     return total / 1e3 / reps
@@ -948,7 +1067,241 @@ def phase_main(card: str, work: str):
     return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "fused_topk_ms": fused_ms, "exact_topk_ms": exact_ms,
-            "overlap": overlap}
+            "overlap": overlap}, {"index": index, "exact": exact,
+                                  "queries": queries, "exact_ids": e_ids}
+
+
+INT8_MODES = (
+    ("int8", {"quantized": True}),
+    ("int8+r8", {"quantized": True, "rescore_int8": True}),
+    ("fused:bins=4096+int8", {"fused": True, "quantized": True}),
+    ("fused:bins=4096+int8+r8", {"fused": True, "quantized": True,
+                                 "rescore_int8": True}),
+)
+
+
+def fused_int8_witness(svc, exact_items, queries, exact_ids) -> dict:
+    """Where the fused int8 modes lose overlap@500, each answer rescored in
+    float32 from the resident rows: the int8 scan's candidates with the
+    top 500 (the served path) and the top 2,000 by scan score rescored,
+    and the top 500 by the int8 and by the bf16 scan score over the whole
+    catalog, with no bins (each rounding's own loss, without bin
+    collisions)."""
+    import torch
+
+    from esrecsys_tpu_torch.retrieval.fused import binned_candidates
+    from esrecsys_tpu_torch.retrieval.mips import topk_lower_index_first
+
+    q = torch.from_numpy(queries).to(exact_items.device)
+    M = exact_items.shape[0]
+
+    def overlap(cand):  # (B, n) int64 candidates -> overlap@500 of their top
+        s = (exact_items[cand] * q[:, None, :]).sum(-1)
+        _, sel = topk_lower_index_first(s, 500)
+        return overlap_at_k(exact_items, queries,
+                            torch.gather(cand, -1, sel).cpu().numpy(),
+                            exact_ids)
+
+    out = {}
+    vals, ids = binned_candidates(q, svc._items_packed, M, svc._fused_bins,
+                                  item_scales=svc._fused_scales)
+    for width in (500, 2000):
+        _, sel = topk_lower_index_first(vals, width)
+        out[f"bins, {width} rescored"] = overlap(
+            torch.gather(ids, -1, sel).long())
+    qb = q.to(torch.bfloat16).float()
+    int8 = (qb @ svc._items_packed[:, :M].float()) * svc._fused_scales[:M]
+    out["int8, no bins"] = overlap(torch.topk(int8, 500).indices)
+    del int8
+    bf16 = qb @ exact_items.to(torch.bfloat16).float().T
+    out["bf16, no bins"] = overlap(torch.topk(bf16, 500).indices)
+    return out
+
+
+def phase_int8(card: str, ctx: dict) -> dict:
+    """Serve the trained catalog in the four int8 modes and through one
+    HTTP request of serve(fused, quantized, rescore_int8)."""
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_scan as fs
+    from esrecsys_tpu_torch.serving.server import RetrievalService, serve
+
+    index, exact, queries = ctx["index"], ctx["exact"], ctx["queries"]
+    fs.LAUNCHES_INT8.reset()
+    # ---- the main path: the four int8 modes, then HTTP
+    t0 = time.perf_counter()
+    services, answers = {}, {}
+    built = {}
+    for mode, kw in INT8_MODES:
+        t_build = time.perf_counter()
+        svc = RetrievalService(index, max_k=500, max_batch=8,
+                               fused_bins=4096, device="cuda", **kw)
+        built[mode] = time.perf_counter() - t_build
+        services[mode] = svc
+        answers[mode] = svc.topk(queries, k=500)
+    httpd = serve(index, port=0, max_k=500, max_batch=8, fused=True,
+                  fused_bins=4096, quantized=True, rescore_int8=True,
+                  device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        one = http_json(f"{url}/v1/topk",
+                        {"vector": queries[0].tolist(), "k": 500})
+        stats = http_json(f"{url}/statsz")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = fs.LAUNCHES_INT8.count
+    # ---- checks of what came out
+    if launches <= 0:
+        raise AssertionError("the fused int8 modes never launched "
+                             "fused_scan_int8")
+    r8 = "fused:bins=4096+int8+r8"
+    if one["ids"] != list(answers[r8][0][0]):
+        raise AssertionError("HTTP int8+r8 query differs from topk")
+    if (stats["mode"] != r8
+            or stats["resident_bytes_per_item"] != 2 * (64 + 4)):
+        raise AssertionError(f"statsz: {stats}")
+    # the device quantizer (int8: from the resident float32 rows) against
+    # its numpy twin (int8+r8: quantized on the host), whole catalog
+    dq, hq = services["int8"], services["int8+r8"]
+    if hq._items is not None or services[r8]._items is not None:
+        raise AssertionError("rescore_int8 kept a float32 catalog")
+    if not (torch.equal(dq._q_items, hq._q_items) and torch.equal(
+            dq._scales.view(torch.int32), hq._scales.view(torch.int32))):
+        raise AssertionError("quantize_rows on the card differs from "
+                             "quantize_rows_np")
+    log(f"int8 path: {len(index)} tracks served in 4 int8 modes + 1 HTTP "
+        f"request in {path_s:.1f} s, fused_scan_int8 launches {launches}; "
+        f"quantize_rows on the card equals quantize_rows_np bit for bit "
+        f"over {dq._q_items.numel()} codes and {dq._scales.numel()} scales "
+        f"[{card}]")
+    q8 = queries[:8]
+    out = {"launches": launches, "modes": {}}
+    for mode, svc in services.items():
+        ids, scores = answers[mode]
+        if (svc.mode != mode or scores.shape != (64, 500)
+                or not np.isfinite(scores).all()):
+            raise AssertionError(f"{mode}: mode {svc.mode}, scores "
+                                 f"{scores.shape} not finite")
+        overlap = overlap_at_k(exact._items, queries, ids, ctx["exact_ids"])
+        ms = host_ms(lambda: svc.topk(q8, k=500), 20)
+        wall, busy, top = device_breakdown(lambda: svc.topk(q8, k=500), 5)
+        if busy is None:
+            split = "device time not measured (no device rows in the trace)"
+        else:
+            split = (f"device busy {busy:.3f} ms (idle share "
+                     f"{1 - busy / wall:.2f}); largest: " + ", ".join(
+                         f"{k[:40]} {v * 1e3:.1f} us" for k, v in top))
+        log(f"serve {mode}: built in {built[mode]:.2f} s (upload, "
+            f"quantize, scan copy, warm-up query); overlap@500 vs exact "
+            f"{overlap:.4f} over 64 queries (floor {INT8_FLOOR}), "
+            f"{svc.resident_bytes_per_item} resident bytes per item; B=8 "
+            f"k=500 topk {ms:.3f} ms (median "
+            f"of 20, host clock); breakdown {wall:.3f} ms per call under "
+            f"the profiler, {split} [{card}]")
+        if overlap < INT8_FLOOR:
+            raise AssertionError(f"{mode} overlap@500 {overlap} < "
+                                 f"{INT8_FLOOR}")
+        out["modes"][mode] = {"overlap": overlap, "topk_ms": ms}
+    svc = services["fused:bins=4096+int8"]
+    witness = fused_int8_witness(svc, exact._items, queries,
+                                 ctx["exact_ids"])
+    log("fused int8 overlap@500 vs exact over 64 queries, by where the "
+        "candidates come from (each rescored in float32): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in witness.items()) + f" [{card}]")
+    if abs(witness["bins, 500 rescored"]
+           - out["modes"]["fused:bins=4096+int8"]["overlap"]) > 1e-6:
+        raise AssertionError(f"the witness's served path {witness} differs "
+                             f"from the fused int8 service")
+    # ---- the int8 kernel at the served shape, timed
+    codes, scales = svc._items_packed, svc._fused_scales
+    qb = torch.from_numpy(q8).cuda().to(torch.bfloat16)
+    L, M = svc._fused_bins, len(index)
+    kernel_ms = cuda_ms(
+        lambda: fs.fused_scan_int8_cuda(qb, codes, scales, L, M), 50)
+    plain_ms = cuda_ms(
+        lambda: fs.fused_scan_int8_plain(qb, codes, scales, L, M), 3,
+        warmup=1)
+    D, Mp = codes.shape
+    cols = -(-M // L) * L
+    moved = cols * (D + 4) + q8.shape[0] * D * 2 + q8.shape[0] * 2 * L * 8
+    flops = 2 * q8.shape[0] * D * cols
+    out["ms"], out["plain_ms"] = kernel_ms, plain_ms
+    out["bound_ms"] = max(moved / HBM_BYTES_PER_S,
+                          flops / BF16_FLOPS_PER_S) * 1e3
+    out["bound_by"] = ("bytes" if moved / HBM_BYTES_PER_S
+                       >= flops / BF16_FLOPS_PER_S else "operations")
+    log(f"kernel fused_scan_int8 B=8 D={D} Mp={Mp} L={L}: "
+        f"{kernel_ms * 1e3:.1f} us (mean of 50, CUDA events), bound "
+        f"{out['bound_ms'] * 1e3:.1f} us by {out['bound_by']} "
+        f"({moved / 1e6:.1f} MB), plain version {plain_ms:.3f} ms [{card}]")
+    return out
+
+
+def phase_tool(card: str) -> dict:
+    """The port's scatter_attempt tool, then smem_scatter timed at the
+    album table with the tool's inputs."""
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.kernels import smem_scatter as ss
+    from esrecsys_tpu_torch.tools import scatter_attempt as sat
+
+    ss.LAUNCHES.reset()
+    # ---- the main path: the tool, a few iterations
+    res = sat.main(["--iters", "5"])
+    torch.cuda.synchronize()
+    launches = ss.LAUNCHES.count
+    if launches <= 0:
+        raise AssertionError("scatter_attempt never launched smem_scatter")
+    for rows in sat.ROWS:
+        r = res[f"R{rows}"]
+        for name in ("smem_scatter", "scatter_add"):
+            if not r[f"{name}_max_abs_diff"] <= TOL:
+                raise AssertionError(f"scatter_attempt R={rows}: {name} "
+                                     f"differs from index_add_ by "
+                                     f"{r[name + '_max_abs_diff']}")
+        log(f"tool scatter_attempt R={rows} x {sat.DIM}, {sat.N_IDS} ids: "
+            f"smem_scatter {r['smem_scatter_ms'] * 1e3:.1f} us, scatter_add "
+            f"{r['scatter_add_ms'] * 1e3:.1f} us, index_add_ "
+            f"{r['index_add_ms'] * 1e3:.1f} us (mean of 5, CUDA events, "
+            f"table warm in L2) [{card}]")
+    # ---- smem_scatter at the album table, L2 flushed before each call
+    rng = np.random.default_rng(0)
+    R, D, n = sat.ROWS[0], sat.DIM, sat.N_IDS
+    table = torch.from_numpy(rng.normal(size=(R, D)).astype(np.float32)
+                             ).cuda()
+    ids = torch.from_numpy(rng.integers(0, R, n).astype(np.int32)).cuda()
+    upd = torch.from_numpy((rng.normal(size=(n, D)) * 1e-4)
+                           .astype(np.float32)).cuda()
+    tk, tp, tl = table.clone(), table.clone(), table.clone()
+    ms, plain_ms, lib_ms = time_kernel(
+        lambda: ss.smem_scatter_cuda(tk, ids, upd),
+        lambda: ss.smem_scatter_plain(tp, ids, upd),
+        lambda: tl.index_add_(0, ids, upd))
+    # the function, in place, moves only the rows its ids touch, as
+    # scatter_add's bound counts them; the kernel's whole-table copy in and
+    # out is a cost of its design, logged beside the bound
+    distinct = rows_bytes(ids, D)
+    moved = 2 * distinct + n * D * 4 + n * 4
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    design = 2 * R * D * 4 + n * D * 4 + n * 4
+    log(f"kernel smem_scatter at the album table ({R} x {D}, {n} ids, "
+        f"{distinct // (D * 4)} distinct), device time per call with the L2 "
+        f"cache flushed before it (profiler, 20 calls): {ms * 1e3:.1f} us "
+        f"(plain {plain_ms * 1e3:.1f}, index_add_ {lib_ms * 1e3:.1f}, bound "
+        f"{bound_ms * 1e3:.1f} by bytes, {moved / 1e6:.1f} MB: the touched "
+        f"rows read and written, updates and ids read; the design's whole-"
+        f"table copy in and out moves {design / 1e6:.1f} MB, "
+        f"{design / HBM_BYTES_PER_S * 1e6:.1f} us) [{card}]")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
 def main() -> int:
@@ -978,13 +1331,27 @@ def main() -> int:
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} "
             f"count {torch.cuda.device_count()}")
-        phase_build()
-        max_err = phase_kernels(card)
-        g_err, s_err = check_gather_scatter(card)
-        a_err = check_affinity(card)
+        spent = {}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            spent[name] = round(time.perf_counter() - t0, 1)
+            return out
+
+        timed("build", phase_build)
+        max_err = timed("fused_scan", phase_kernels, card)
+        g_err, s_err = timed("gather_scatter", check_gather_scatter, card)
+        a_err = timed("affinity", check_affinity, card)
+        i8_err = timed("fused_scan_int8", check_fused_int8, card)
+        sm_err, sm_pile = timed("smem_scatter", check_smem_scatter, card)
         with tempfile.TemporaryDirectory() as work:
-            train_res = phase_train(card, work)
-            main_res = phase_main(card, work)
+            train_res = timed("train", phase_train, card, work)
+            main_res, ctx = timed("serve", phase_main, card, work)
+            int8_res = timed("int8", phase_int8, card, ctx)
+            del ctx
+        tool_res = timed("tool", phase_tool, card)
+        log(f"seconds per phase: {spent}")
     except Exception:
         traceback.print_exc()
         return 1
@@ -1012,6 +1379,23 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    rows.append({
+        "name": "fused_scan_int8", "route": "cuda",
+        "source": "esrecsys_tpu_torch/csrc/fused_scan.cu",
+        "replaces": "esrecsys_tpu/retrieval/fused.py:212",
+        "launches": int8_res["launches"], "max_abs_err": i8_err,
+        "ms": int8_res["ms"], "plain_ms": int8_res["plain_ms"],
+        "bound_ms": int8_res["bound_ms"], "bound_by": int8_res["bound_by"],
+        "library_ms": None})
+    rows.append({
+        "name": "smem_scatter", "route": "cuda",
+        "source": "esrecsys_tpu_torch/csrc/smem_scatter.cu",
+        "replaces": "esrecsys_tpu/ops/scatter.py:240",
+        "launches": tool_res["launches"],
+        "max_abs_err": max(sm_err, sm_pile), "ms": tool_res["ms"],
+        "plain_ms": tool_res["plain_ms"], "bound_ms": tool_res["bound_ms"],
+        "bound_by": tool_res["bound_by"],
+        "library_ms": tool_res["library_ms"]})
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,10 +56,11 @@ def _optax_trace(opt_state):
     return None
 
 
-def state_from_jax(jax_state, cfg, device="cpu"):
+def state_from_jax(jax_state, cfg, device=None):
     """A JAX playlist ``TrainState`` -> the port's ``TrainState`` for the
     same ``PlaylistConfig`` fields: params, ``step``, and the optimizer
-    state. The row-sparse step's dense momentum carrier
+    state, on ``device`` (default: the card, as every entry point; pass
+    ``device="cpu"`` on a host without one). The row-sparse step's dense momentum carrier
     (``{"album": {"momentum"}, "artist": {"momentum"}}``) is copied as it
     is; the dense step's optax trace becomes the SGD momentum buffers."""
     from esrecsys_tpu_torch.workloads.playlist import init_state

@@ -8,9 +8,15 @@ falls in bin ``g mod L`` and each bin keeps its top two (value, id) pairs,
 folded over the catalog blocks in ascending order with a strict ``>``
 (the earlier block wins ties; slots never filled keep (-inf, 0)).
 
-A CPU tensor takes :func:`fused_scan_plain`; a CUDA tensor launches the
-kernel in ``csrc/fused_scan.cu`` or raises. ``LAUNCHES.count`` counts the
-kernel's launches.
+``fused_scan_int8`` is the TPU kernel's int8 branch (quantized serving):
+the catalog is (D, Mp) int8 codes with a flat (Mp,) float32 scale per
+item; each code widens to bf16 exactly (|v| <= 127), and the float32 dot
+is multiplied by the item's scale before the bound, the mask and the fold.
+
+A CPU tensor takes the plain version (:func:`fused_scan_plain`,
+:func:`fused_scan_int8_plain`); a CUDA tensor launches the kernel in
+``csrc/fused_scan.cu`` or raises. ``LAUNCHES.count`` counts the bf16
+kernel's launches, ``LAUNCHES_INT8.count`` the int8 kernel's.
 """
 
 from __future__ import annotations
@@ -26,17 +32,24 @@ NEG_INF = float("-inf")
 SUPPORTED_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
 
 LAUNCHES = LaunchCounter()
+LAUNCHES_INT8 = LaunchCounter()
 
 
 def _check(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
-           bound: int, mask: Optional[torch.Tensor]) -> None:
+           bound: int, mask: Optional[torch.Tensor],
+           scales: Optional[torch.Tensor] = None) -> None:
     if q.dim() != 2 or items_packed.dim() != 2:
         raise ValueError(f"q {tuple(q.shape)} and items_packed "
                          f"{tuple(items_packed.shape)} must be 2-D")
-    if q.dtype != torch.bfloat16 or items_packed.dtype != torch.bfloat16:
-        raise TypeError(f"q ({q.dtype}) and items_packed "
-                        f"({items_packed.dtype}) must be bfloat16")
+    kind = torch.bfloat16 if scales is None else torch.int8
+    if q.dtype != torch.bfloat16 or items_packed.dtype != kind:
+        raise TypeError(f"q ({q.dtype}) must be bfloat16 and items_packed "
+                        f"({items_packed.dtype}) {kind}")
     D, Mp = items_packed.shape
+    if scales is not None and (scales.shape != (Mp,)
+                               or scales.dtype != torch.float32):
+        raise ValueError(f"scales must be ({Mp},) float32, got "
+                         f"{tuple(scales.shape)} {scales.dtype}")
     if q.shape[1] != D:
         raise ValueError(f"q dim {q.shape[1]} != catalog dim {D}")
     if num_bins < 1 or num_bins % 128 or Mp % num_bins:
@@ -50,15 +63,16 @@ def _check(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
                          f"{tuple(mask.shape)} {mask.dtype}")
 
 
-def fused_scan_plain(q: torch.Tensor, items_packed: torch.Tensor,
-                     num_bins: int, bound: int,
-                     mask: Optional[torch.Tensor] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch, one catalog block at a time
+def _scan_plain(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
+                bound: int, mask: Optional[torch.Tensor],
+                scales: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both kernels' function in plain PyTorch, one catalog block at a time
     (the reference's per-grid-step fold): (vals (B, 2L) float32, ids
-    (B, 2L) int32). Scores are float32 products of the bf16 inputs, so on
-    a card this needs TF32 off."""
-    _check(q, items_packed, num_bins, bound, mask)
+    (B, 2L) int32). Scores are float32 products of the bf16 (or int8)
+    inputs, times ``scales`` for an int8 catalog, so on a card this needs
+    TF32 off."""
+    _check(q, items_packed, num_bins, bound, mask, scales)
     B = q.shape[0]
     L = num_bins
     dev = q.device
@@ -70,6 +84,8 @@ def fused_scan_plain(q: torch.Tensor, items_packed: torch.Tensor,
     lane = torch.arange(L, dtype=torch.int32, device=dev)
     for b in range(-(-bound // L)):  # later blocks score -inf: no effect
         s = qf @ items_packed[:, b * L:(b + 1) * L].float()
+        if scales is not None:
+            s = s * scales[b * L:(b + 1) * L]
         gid = b * L + lane
         ok = gid < bound
         if mask is not None:
@@ -86,6 +102,14 @@ def fused_scan_plain(q: torch.Tensor, items_packed: torch.Tensor,
     return torch.cat([m1, m2], dim=-1), torch.cat([id1, id2], dim=-1)
 
 
+def fused_scan_plain(q: torch.Tensor, items_packed: torch.Tensor,
+                     num_bins: int, bound: int,
+                     mask: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's function in plain PyTorch."""
+    return _scan_plain(q, items_packed, num_bins, bound, mask, None)
+
+
 def typed_library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = load_library("fused_scan")
@@ -96,28 +120,35 @@ def typed_library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ptr]
         lib.esr_fused_scan.restype = ctypes.c_int
+        lib.esr_fused_scan_int8.argtypes = [
+            ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ptr]
+        lib.esr_fused_scan_int8.restype = ctypes.c_int
         lib.esr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.esr_cuda_error_string.restype = ctypes.c_char_p
         lib._esr_typed = True
     return lib
 
 
-def fused_scan_cuda(q: torch.Tensor, items_packed: torch.Tensor,
-                    num_bins: int, bound: int,
-                    mask: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream; no synchronisation."""
-    _check(q, items_packed, num_bins, bound, mask)
-    tensors = [q, items_packed] + ([mask] if mask is not None else [])
+def _launch(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
+            bound: int, mask: Optional[torch.Tensor],
+            scales: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs and launch the bf16 (``scales`` None) or the int8
+    kernel on the current stream; no synchronisation."""
+    _check(q, items_packed, num_bins, bound, mask, scales)
+    tensors = [t for t in (q, items_packed, mask, scales) if t is not None]
     dev = items_packed.device
     if any(not t.is_cuda or t.device != dev for t in tensors):
-        raise ValueError("fused_scan_cuda needs every tensor on one CUDA "
-                         "device")
+        raise ValueError("the fused scan kernel needs every tensor on one "
+                         "CUDA device")
     if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("fused_scan_cuda needs contiguous tensors")
-    if items_packed.data_ptr() % 16 or (mask is not None
-                                        and mask.data_ptr() % 16):
-        raise ValueError("items_packed and mask must be 16-byte aligned")
+        raise ValueError("the fused scan kernel needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (items_packed, mask, scales)
+           if t is not None):
+        raise ValueError("items_packed, mask and scales must be 16-byte "
+                         "aligned")
     if q.data_ptr() % 4:  # the kernel reads q as pairs of bf16
         raise ValueError("q must be 4-byte aligned")
     B, D = q.shape
@@ -132,17 +163,31 @@ def fused_scan_cuda(q: torch.Tensor, items_packed: torch.Tensor,
         return vals, ids
     lib = typed_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.esr_fused_scan(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        q.data_ptr(), items_packed.data_ptr(),
-        mask.data_ptr() if mask is not None else None,
-        vals.data_ptr(), ids.data_ptr(), B, D, Mp, L, -(-bound // L), bound,
-        stream)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    tail = (mask.data_ptr() if mask is not None else None, vals.data_ptr(),
+            ids.data_ptr(), B, D, Mp, L, -(-bound // L), bound, stream)
+    if scales is None:
+        rc = lib.esr_fused_scan(index, q.data_ptr(), items_packed.data_ptr(),
+                                *tail)
+        name, counter = "fused_scan", LAUNCHES
+    else:
+        rc = lib.esr_fused_scan_int8(index, q.data_ptr(),
+                                     items_packed.data_ptr(),
+                                     scales.data_ptr(), *tail)
+        name, counter = "fused_scan_int8", LAUNCHES_INT8
     if rc != 0:
-        raise RuntimeError(f"fused_scan launch failed: CUDA error {rc} "
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({lib.esr_cuda_error_string(rc).decode()})")
-    LAUNCHES.count += 1
+    counter.count += 1
     return vals, ids
+
+
+def fused_scan_cuda(q: torch.Tensor, items_packed: torch.Tensor,
+                    num_bins: int, bound: int,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bf16 kernel on the current stream; no synchronisation."""
+    return _launch(q, items_packed, num_bins, bound, mask, None)
 
 
 def fused_scan(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
@@ -153,3 +198,33 @@ def fused_scan(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
     if items_packed.device.type == "cpu":
         return fused_scan_plain(q, items_packed, num_bins, bound, mask)
     return fused_scan_cuda(q, items_packed, num_bins, bound, mask)
+
+
+def fused_scan_int8_plain(q: torch.Tensor, codes: torch.Tensor,
+                          scales: torch.Tensor, num_bins: int, bound: int,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 kernel's function in plain PyTorch."""
+    return _scan_plain(q, codes, num_bins, bound, mask, scales)
+
+
+def fused_scan_int8_cuda(q: torch.Tensor, codes: torch.Tensor,
+                         scales: torch.Tensor, num_bins: int, bound: int,
+                         mask: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the int8 kernel on the current stream; no synchronisation."""
+    if scales is None:
+        raise ValueError("the int8 scan needs the per-item scales")
+    return _launch(q, codes, num_bins, bound, mask, scales)
+
+
+def fused_scan_int8(q: torch.Tensor, codes: torch.Tensor,
+                    scales: torch.Tensor, num_bins: int, bound: int,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-bin top-2 candidates over an int8 catalog: the plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors (raising when it
+    cannot launch)."""
+    if codes.device.type == "cpu":
+        return fused_scan_int8_plain(q, codes, scales, num_bins, bound, mask)
+    return fused_scan_int8_cuda(q, codes, scales, num_bins, bound, mask)

@@ -1,9 +1,11 @@
 """Row scatter-add (counterpart of ``esrecsys_tpu/ops/scatter.py``
-``scatter_add_rows``).
+``scatter_add_rows`` and ``vmem_scatter_add_phys``).
 
-Runs through :mod:`esrecsys_tpu_torch.kernels.scatter_add` (the port of the
-TPU kernel ``_kernel``): a hand-written CUDA kernel on the card, its plain
-PyTorch version on the CPU. The reference's ``precision`` passes
+``scatter_add_rows`` runs through :mod:`esrecsys_tpu_torch.kernels.scatter_add`
+(the port of the TPU kernel ``_kernel``), ``vmem_scatter_add`` through
+:mod:`esrecsys_tpu_torch.kernels.smem_scatter` (the port of
+``_vmem_scatter_kernel``): hand-written CUDA kernels on the card, their
+plain PyTorch versions on the CPU. The reference's ``precision`` passes
 (``bf16``/``bf16x2``/``f32``) are a trick of the TPU's matrix unit and are
 not ported: the port is float32 throughout and takes no ``precision``.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from esrecsys_tpu_torch.kernels.scatter_add import scatter_add
+from esrecsys_tpu_torch.kernels.smem_scatter import smem_scatter
 
 
 def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
@@ -22,3 +25,16 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
     call) and returns it; ids outside ``[0, R)`` are dropped."""
     return scatter_add(table, ids.to(torch.int32).contiguous(),
                        updates.contiguous())
+
+
+def vmem_scatter_add(table: torch.Tensor, ids: torch.Tensor,
+                     updates: torch.Tensor) -> torch.Tensor:
+    """``table.at[ids].add(updates)`` through a table held whole in
+    on-chip memory (the reference's ``vmem_scatter_add_phys``, on the
+    logical (R, D) float32 table rather than its 128-lane packed form).
+    Updates ``table`` IN PLACE and returns it; ids outside ``[0, R)`` are
+    dropped. Raises ValueError naming the shared memory when the table
+    does not fit the card's (the flagship album table fits, the artist
+    table does not)."""
+    return smem_scatter(table, ids.to(torch.int32).contiguous(),
+                        updates.contiguous())

@@ -4,6 +4,11 @@
     answers top-k queries, exact (``mips.topk_over_matrix``) or through the
     fused scan+select kernel (``fused=True``, ``retrieval/fused.py``), with
     named eligibility filters, exclusion lists and item-to-item queries.
+    ``quantized=True`` scans an int8 copy of the catalog instead (the exact
+    int8 scan ``mips.quantized_topk_over_matrix``, or with ``fused`` the
+    int8 kernel) and rescores the candidates in float32; ``rescore_int8``
+    rescores from the int8 rows too, so no float32 catalog is on the
+    device at all.
   * ``QueryBatcher`` coalesces concurrent single queries into one call.
   * ``serve`` returns a stdlib ``ThreadingHTTPServer`` exposing:
       GET  /healthz            -> {"status": "ok", "items": N, ...}
@@ -16,9 +21,9 @@
       POST /admin/set_filter   -> body {"name": ..., "ids": [...]}
 
 Not ported yet (construction raises ``NotImplementedError``; the HTTP
-routes answer 501): the approx, quantized/int8, IVF, PQ and catalog-sharded
-modes, ``add_capacity`` with ``/admin/add_items``, ``/admin/reload``, and
-query encoders.
+routes answer 501): the approx (also with quantized), IVF, PQ and
+catalog-sharded modes, ``add_capacity`` with ``/admin/add_items``,
+``/admin/reload``, and query encoders.
 """
 
 from __future__ import annotations
@@ -37,17 +42,21 @@ import torch
 
 from esrecsys_tpu_torch.core.device import pad_to_multiple, resolve_device
 from esrecsys_tpu_torch.retrieval.fused import (binned_topk_over_matrix,
-                                                pack_catalog, pad_mask,
+                                                pack_catalog,
+                                                pack_catalog_codes, pad_mask,
                                                 validate_fused_bins)
 from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
-from esrecsys_tpu_torch.retrieval.mips import topk_over_matrix
+from esrecsys_tpu_torch.retrieval.mips import (quantize_rows,
+                                               quantize_rows_np,
+                                               quantized_topk_over_matrix,
+                                               topk_over_matrix)
 
 log = logging.getLogger(__name__)
 
 # the reference's serving options that have no port yet
-UNPORTED_OPTIONS = ("approx", "quantized", "rescore_int8", "ivf_clusters",
-                    "ivf_index_path", "pq_subspaces", "pq_index_path",
-                    "n_model_shards", "add_capacity", "encoders")
+UNPORTED_OPTIONS = ("approx", "ivf_clusters", "ivf_index_path",
+                    "pq_subspaces", "pq_index_path", "n_model_shards",
+                    "add_capacity", "encoders")
 
 
 def _reject_unported(options: dict) -> None:
@@ -57,7 +66,7 @@ def _reject_unported(options: dict) -> None:
         if value:
             raise NotImplementedError(
                 f"serving option {name!r} is not ported yet; the port "
-                "serves the exact and fused modes")
+                "serves the exact, fused and int8 (quantized) modes")
 
 
 def _finite_row(ids_row, scores_row):
@@ -84,10 +93,22 @@ class RetrievalService:
     def __init__(self, index: EmbeddingIndex, max_k: int = 100,
                  max_batch: int = 8, block_size: int = 262_144,
                  fused: bool = False, fused_bins: int = 4096,
+                 quantized: bool = False, rescore_int8: bool = False,
                  filters: Optional[Dict[str, Sequence[str]]] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  **unported):
+        if fused and quantized and unported.get("n_model_shards"):
+            raise ValueError(
+                "sharded fused serving scans bf16: drop quantized or "
+                "n_model_shards (int8 scan copies are single-shard)")
         _reject_unported(unported)
+        # rescore_int8 keeps no float32 catalog on the device, so the scan
+        # must not read one: the int8 modes are the ported scans that don't
+        if rescore_int8 and not quantized:
+            raise ValueError(
+                "rescore_int8 drops the resident f32 catalog, so the scan "
+                "must not need it: enable quantized (the pq modes are not "
+                "ported yet)")
         self.device = resolve_device(device)
         self.index = index
         self.max_k = min(max_k, len(index))
@@ -98,6 +119,8 @@ class RetrievalService:
         self._dim = int(index.vectors.shape[1])
         self.capacity = len(index)
         self.fused = fused
+        self.quantized = quantized
+        self.rescore_int8 = rescore_int8
         if fused:
             # at least ceil(max_k/2) bins so 2L >= k (fused.py recall math)
             self._fused_bins = max(
@@ -105,13 +128,30 @@ class RetrievalService:
                 pad_to_multiple(-(-min(max_k, len(index)) // 2), 128))
             validate_fused_bins(self._fused_bins, self._dim,
                                 use_mask=filters is not None,
-                                device=self.device)
+                                use_scales=quantized, device=self.device)
         else:
             self._fused_bins = None
-        self._items = torch.from_numpy(index.vectors).to(self.device)
-        # the transposed bf16 scan copy, built once on the device
-        self._items_packed = (pack_catalog(self._items, self._fused_bins)
-                              if fused else None)
+        # (M, D) float32 rows, resident unless rescore_int8 drops them
+        self._items = (None if rescore_int8 else
+                       torch.from_numpy(index.vectors).to(self.device))
+        # int8 rows and scales: quantized on the device from the resident
+        # float32 rows, or on the host (the bit-identical numpy twin) under
+        # rescore_int8, so that no float32 catalog ever reaches the device
+        self._q_items = self._scales = None
+        if quantized and self._items is not None:
+            self._q_items, self._scales = quantize_rows(self._items)
+        elif quantized:
+            q8, sc = quantize_rows_np(index.vectors)
+            self._q_items = torch.from_numpy(q8).to(self.device)
+            self._scales = torch.from_numpy(sc).to(self.device)
+        # the scan copy, built once on the device: transposed bf16, or the
+        # transposed int8 codes with a flat scale per item (quantized)
+        self._items_packed = self._fused_scales = None
+        if fused and quantized:
+            self._items_packed, self._fused_scales = pack_catalog_codes(
+                self._q_items, self._scales, self._fused_bins)
+        elif fused:
+            self._items_packed = pack_catalog(self._items, self._fused_bins)
         self._ids = np.asarray(index.ids, dtype=object)
         self._filters_enabled = filters is not None
         self._filter_masks: Dict[str, torch.Tensor] = {}
@@ -128,10 +168,23 @@ class RetrievalService:
 
     def _query(self, q: torch.Tensor, fmask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        # under rescore_int8 the candidates are rescored from the int8
+        # rows, dequantized; otherwise from the float32 rows
+        r8 = self.rescore_int8
+        rescore = self._q_items if r8 else self._items
+        rescore_scales = self._scales if r8 else None
         if self.fused:
             return binned_topk_over_matrix(
-                q, self._items, self.max_k, num_bins=self._fused_bins,
-                item_mask=fmask, items_packed=self._items_packed)
+                q, rescore, self.max_k, num_bins=self._fused_bins,
+                item_mask=fmask, items_packed=self._items_packed,
+                item_scales=self._fused_scales,
+                rescore_scales=rescore_scales)
+        if self.quantized:
+            # large blocks: few scan iterations, few candidates to rescore
+            return quantized_topk_over_matrix(
+                q, self._q_items, self._scales, rescore, self.max_k,
+                block_size=max(self.block_size, 262_144),
+                rescore_scales=rescore_scales, item_mask=fmask)
         return topk_over_matrix(q, self._items, self.max_k, self.block_size,
                                 item_mask=fmask)
 
@@ -179,14 +232,30 @@ class RetrievalService:
 
     @property
     def resident_bytes_per_item(self) -> int:
-        """Device bytes held per catalog item: the float32 rows, plus the
-        bf16 scan copy in fused mode."""
-        return 4 * self._dim + (2 * self._dim if self.fused else 0)
+        """Device bytes held per catalog item: the float32 rows (unless
+        rescore_int8 dropped them), the scan copy in fused mode (bf16, or
+        int8 codes and a float32 scale), and the int8 rows and scale in the
+        quantized modes. This is the number rescore_int8 shrinks."""
+        b = 0
+        if self._items is not None:
+            b += 4 * self._dim
+        if self._items_packed is not None:
+            b += (self._dim + 4 if self._fused_scales is not None
+                  else 2 * self._dim)
+        if self._q_items is not None:
+            b += self._dim + 4
+        return b
 
     @property
     def mode(self) -> str:
         """Human-readable name of the active catalog-scan mode."""
-        return f"fused:bins={self._fused_bins}" if self.fused else "exact"
+        r8 = "+r8" if self.rescore_int8 else ""  # int8 rescore, f32-free
+        q8 = "+int8" if self.quantized else ""
+        if self.fused:
+            return f"fused:bins={self._fused_bins}{q8}{r8}"
+        if self.quantized:
+            return "int8" + r8
+        return "exact"
 
     def exclusion_budget(self, k: int, exclude) -> int:
         """Validate an exclusion list against the top-k width: exclusion
@@ -524,6 +593,7 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
           port: int = 8000, max_k: int = 100, max_batch: int = 8,
           coalesce: bool = True, max_wait_ms: float = 2.0,
           fused: bool = False, fused_bins: int = 4096,
+          quantized: bool = False, rescore_int8: bool = False,
           filters: Optional[Dict[str, Sequence[str]]] = None,
           admin_token: Optional[str] = None,
           device: Optional[Union[str, torch.device]] = None,
@@ -534,13 +604,17 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
     :class:`EmbeddingIndex` already in memory. Call ``.serve_forever()``
     to block, or run it in a thread; ``port=0`` picks a free port
     (``server_address[1]``). ``coalesce`` batches concurrent single
-    queries (:class:`QueryBatcher`)."""
+    queries (:class:`QueryBatcher`). ``quantized`` scans the catalog in
+    int8 with a float32 rescore; ``rescore_int8`` on top of it keeps no
+    float32 catalog on the device."""
     _reject_unported(unported)
     index_path = index if isinstance(index, str) else None
     if index_path is not None:
         index = EmbeddingIndex.load(index_path)
     service = RetrievalService(index, max_k=max_k, max_batch=max_batch,
                                fused=fused, fused_bins=fused_bins,
+                               quantized=quantized,
+                               rescore_int8=rescore_int8,
                                filters=filters, device=device)
     batcher = QueryBatcher(service, max_wait_ms=max_wait_ms) if coalesce else None
     httpd = RetrievalHTTPServer((host, port), _Handler)
@@ -572,6 +646,16 @@ def main(argv=None):
                         "scan; +2*D bytes/item for the bf16 scan copy")
     p.add_argument("--fused_bins", type=int, default=4096,
                    help="fused-mode bin count L (recall rises ~L^2)")
+    p.add_argument("--quantized", action="store_true",
+                   help="int8 catalog scan + float32 rescore of the "
+                        "candidates (exact int8 scan, or the int8 fused "
+                        "kernel with --fused: D+4 bytes/item scanned)")
+    p.add_argument("--rescore_int8", action="store_true",
+                   help="drop the resident float32 catalog: the rescore "
+                        "dequantizes int8 rows instead (requires "
+                        "--quantized); residency falls to D+4 bytes/item "
+                        "(2*(D+4) with --fused) vs 4*D+; returned scores "
+                        "carry <=0.4%%-of-row-max int8 rounding")
     p.add_argument("--filters_json", default="",
                    help='JSON {"name": ["catalog id", ...]} or a file of it; '
                         "'{}' enables filters with none registered yet")
@@ -588,7 +672,8 @@ def main(argv=None):
         filters = json.loads(text)
     serve(args.index, args.host, args.port, args.max_k, args.max_batch,
           coalesce=not args.no_coalesce, fused=args.fused,
-          fused_bins=args.fused_bins, filters=filters,
+          fused_bins=args.fused_bins, quantized=args.quantized,
+          rescore_int8=args.rescore_int8, filters=filters,
           admin_token=args.admin_token or None,
           device=args.device).serve_forever()
 

@@ -14,8 +14,14 @@ eval every ``--eval_every`` steps, then exports the trained model and
 serves that artifact. The reference's host feed from packed ``.npz``
 shards, checkpoints and deploy cycles are not ported yet.
 
+``--quantized_serving`` serves the catalog from an int8 scan copy (the
+exact int8 scan, or the int8 fused kernel with ``--fused``) with a float32
+rescore; ``--rescore_int8`` on top of it keeps no float32 catalog on the
+device.
+
 Run: python -m esrecsys_tpu_torch.tools.full_scale_run --out_dir DIR \
-         [--fused] [--device cuda] [--train --steps N --eval_fused_bins L]
+         [--fused] [--quantized_serving [--rescore_int8]] [--device cuda] \
+         [--train --steps N --eval_fused_bins L]
 """
 
 from __future__ import annotations
@@ -68,6 +74,8 @@ class ServingRunConfig:
     max_batch: int = 8
     fused: bool = False
     fused_bins: int = 4096
+    quantized: bool = False
+    rescore_int8: bool = False
     device: str = "cuda"
 
 
@@ -305,7 +313,8 @@ def serve_from_artifact(cfg: ServingRunConfig,
     index = EmbeddingIndex([str(i) for i in range(cfg.num_tracks)], vecs)
     svc = RetrievalService(index, max_k=cfg.max_k, max_batch=cfg.max_batch,
                            fused=cfg.fused, fused_bins=cfg.fused_bins,
-                           device=cfg.device)
+                           quantized=cfg.quantized,
+                           rescore_int8=cfg.rescore_int8, device=cfg.device)
     ids, scores = svc.topk(vecs[:1], k=cfg.max_k)  # the first real query
     t_first_query = time.perf_counter() - t0
     if ids.shape != (1, svc.max_k) or not np.isfinite(scores).all():
@@ -327,6 +336,12 @@ def main(argv=None):
     p.add_argument("--out_dir", required=True)
     p.add_argument("--fused", action="store_true")
     p.add_argument("--fused_bins", type=int, default=4096)
+    p.add_argument("--quantized_serving", action="store_true",
+                   help="serve from an int8 scan copy with a float32 "
+                        "rescore")
+    p.add_argument("--rescore_int8", action="store_true",
+                   help="with --quantized_serving: rescore from the int8 "
+                        "rows, so no float32 catalog is on the device")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     # scale overrides (tests / CPU smoke; defaults are the MPD scale)
@@ -353,7 +368,8 @@ def main(argv=None):
         out_dir=args.out_dir, num_tracks=args.corpus_size,
         num_albums_raw=args.num_albums_raw, album_buckets=args.album_buckets,
         num_artists=args.num_artists, seed=args.seed, fused=args.fused,
-        fused_bins=args.fused_bins, device=args.device, steps=args.steps,
+        fused_bins=args.fused_bins, quantized=args.quantized_serving,
+        rescore_int8=args.rescore_int8, device=args.device, steps=args.steps,
         batch_size=args.batch_size, max_next=args.max_next,
         eval_every=args.eval_every, eval_playlists=args.eval_playlists,
         eval_fused_bins=args.eval_fused_bins)

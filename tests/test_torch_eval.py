@@ -109,7 +109,7 @@ def _eval_setup(n=600, b=8, **kw):
                   corpus_block=128, **kw)
     jcfg, tcfg = jpl.PlaylistConfig(**fields), tpl.PlaylistConfig(**fields)
     jmodel, jstate = jpl.init_state(jcfg, None)
-    tstate = state_from_jax(jstate, tcfg)
+    tstate = state_from_jax(jstate, tcfg, device="cpu")
     ri = lambda hi, *s: rng.integers(0, hi, s).astype(np.int32)
     mask = rng.integers(0, 2, (b, 8)).astype(np.float32)
     mask[:, 0] = 1.0

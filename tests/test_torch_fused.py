@@ -176,8 +176,10 @@ def test_validate_fused_bins_errors():
         tfused.validate_fused_bins(4096, 48, device="cuda")
     with pytest.raises(ValueError, match="positive"):
         tfused.validate_fused_bins(0, 64)
-    with pytest.raises(ValueError, match="int8"):
-        tfused.validate_fused_bins(4096, 64, use_scales=True)
+    # the int8 scan runs at the bf16 kernel's dims
+    tfused.validate_fused_bins(4096, 64, use_scales=True, device="cuda")
+    with pytest.raises(ValueError, match="dims"):
+        tfused.validate_fused_bins(4096, 48, use_scales=True, device="cuda")
 
 
 def test_pad_mask_pads_once():

@@ -38,7 +38,9 @@ def test_port_has_the_slice_modules():
                 "kernels/gather_pool.py", "csrc/gather_pool.cu",
                 "kernels/scatter_add.py", "csrc/scatter_add.cu",
                 "kernels/fused_affinity.py", "csrc/fused_affinity.cu",
-                "train/state.py", "train/loop.py", "workloads/playlist.py"):
+                "train/state.py", "train/loop.py", "workloads/playlist.py",
+                "kernels/smem_scatter.py", "csrc/smem_scatter.cu",
+                "tools/scatter_attempt.py"):
         assert (PORT / rel).is_file(), rel
 
 
@@ -56,7 +58,9 @@ def test_import_leaves_jax_unloaded():
             "esrecsys_tpu_torch.workloads.playlist, "
             "esrecsys_tpu_torch.train.loop, esrecsys_tpu_torch.ops.lookup, "
             "esrecsys_tpu_torch.ops.scatter, "
-            "esrecsys_tpu_torch.kernels.fused_affinity; "
+            "esrecsys_tpu_torch.kernels.fused_affinity, "
+            "esrecsys_tpu_torch.kernels.smem_scatter, "
+            "esrecsys_tpu_torch.tools.scatter_attempt; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

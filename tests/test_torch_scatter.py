@@ -12,6 +12,12 @@ terms whose products it sums, each rounded on its own. The pile-up case adds
 450 unit normals into one row; partial sums reach about 20, so orders of
 summation may differ by about 1e-4: 2e-4 against XLA, 1e-3 against the
 kernel (the tolerance of ``tests/test_scatter.py:22``).
+
+``vmem_scatter_add`` (the port of ``vmem_scatter_add_phys``, through the
+plain version of ``kernels/smem_scatter.py``) is held against the JAX
+Pallas kernel in interpret mode, as ``tests/test_scatter.py:75`` runs it,
+within the same 1e-5: both add unit-normal rows into a unit-normal table,
+one serially, one in PyTorch's order.
 """
 
 import jax.numpy as jnp
@@ -20,8 +26,10 @@ import pytest
 import torch
 
 from esrecsys_tpu.ops.scatter import scatter_add_rows as jax_scatter
+from esrecsys_tpu.ops.scatter import vmem_scatter_add_phys
 from esrecsys_tpu_torch.kernels import scatter_add as tkernel
-from esrecsys_tpu_torch.ops.scatter import scatter_add_rows
+from esrecsys_tpu_torch.kernels import smem_scatter as tsmem
+from esrecsys_tpu_torch.ops.scatter import scatter_add_rows, vmem_scatter_add
 
 
 def _case(R, N, dim, seed, ids=None):
@@ -95,3 +103,74 @@ def test_check_rejects_bad_inputs():
         tkernel.scatter_add(torch.zeros(4, 8, dtype=torch.float64),
                             torch.zeros(2, dtype=torch.int32),
                             torch.ones(2, 8, dtype=torch.float64))
+
+
+def test_vmem_scatter_matches_jax_interpret():
+    R, N, dim = 512, 700, 32
+    table, ids, upd = _case(R, N, dim, seed=3)
+    pack = 128 // dim
+    want = np.asarray(vmem_scatter_add_phys(
+        jnp.asarray(table).reshape(R // pack, 128), jnp.asarray(ids),
+        jnp.asarray(upd), dim, chunk=256, interpret=True)).reshape(R, dim)
+    t = torch.from_numpy(table.copy())
+    before = tsmem.LAUNCHES.count
+    out = vmem_scatter_add(t, torch.from_numpy(ids), torch.from_numpy(upd))
+    assert out is t and tsmem.LAUNCHES.count == before
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,dim", [(295_936, 32), (40_000, 256)])
+def test_vmem_scatter_rejects_tables_past_shared_memory(rows, dim):
+    # the flagship artist table, and the reference's rejected (40,000, 128)
+    # physical table at twice its width: neither fits 132 x 232,448 B
+    with pytest.raises(ValueError, match="shared memory"):
+        vmem_scatter_add(torch.zeros(rows, dim),
+                         torch.zeros(8, dtype=torch.int32),
+                         torch.zeros(8, dim))
+
+
+def test_smem_plan_holds_the_album_table_in_one_wave():
+    ctas, per_cta = tsmem.smem_plan(100_096, 32, tsmem.H100_SMS,
+                                    tsmem.H100_SMEM_PER_BLOCK)
+    assert ctas <= tsmem.H100_SMS and ctas * per_cta >= 100_096
+    assert per_cta * 32 * 4 <= tsmem.H100_SMEM_PER_BLOCK
+    assert tsmem.smem_budget(torch.device("cpu")) == (132, 232_448)
+
+
+def test_vmem_scatter_drops_out_of_range_ids():
+    table = torch.zeros(6, 4)
+    ids = torch.tensor([1, 1, -1, 6, 100, 5], dtype=torch.int64)
+    upd = torch.arange(24, dtype=torch.float32).reshape(6, 4)
+    vmem_scatter_add(table, ids, upd)
+    want = torch.zeros(6, 4)
+    want[1] = upd[0] + upd[1]
+    want[5] = upd[5]
+    assert torch.equal(table, want)
+
+
+def test_vmem_scatter_pileup_matches_xla():
+    table, ids, upd = _case(300, 450, 32, seed=1, ids=[5] * 450)
+    got = vmem_scatter_add(torch.from_numpy(table.copy()),
+                           torch.from_numpy(ids),
+                           torch.from_numpy(upd)).numpy()
+    xla = np.asarray(jnp.asarray(table).at[ids].add(upd))
+    np.testing.assert_allclose(got, xla, rtol=2e-4, atol=2e-4)
+
+
+def test_smem_scatter_non_cpu_tensors_never_take_the_plain_version():
+    before = tsmem.LAUNCHES.count
+    with pytest.raises(ValueError, match="CUDA"):
+        tsmem.smem_scatter(torch.zeros(4, 8, device="meta"),
+                           torch.zeros(2, dtype=torch.int32, device="meta"),
+                           torch.ones(2, 8, device="meta"))
+    assert tsmem.LAUNCHES.count == before
+
+
+def test_scatter_attempt_tool_needs_a_card(monkeypatch):
+    from esrecsys_tpu_torch.tools import scatter_attempt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scatter_attempt.main(["--iters", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        scatter_attempt.measure(512, 1)

@@ -236,8 +236,7 @@ def test_http_round_trip_matches_jax(catalog):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("approx", True), ("quantized", True), ("rescore_int8", True),
-    ("ivf_clusters", 16), ("pq_subspaces", 4), ("n_model_shards", 2),
+    ("approx", True), ("ivf_clusters", 16), ("pq_subspaces", 4), ("n_model_shards", 2),
     ("add_capacity", 10), ("encoders", {"text": len})])
 def test_unported_modes_raise(catalog, option, value):
     ids, vecs, _, _ = catalog

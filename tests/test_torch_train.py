@@ -82,7 +82,7 @@ def _models(compute_dtype="float32", seed=3):
     jcfg, tcfg = _cfgs(compute_dtype=compute_dtype, seed=seed, momentum=0.0,
                        sparse_updates=True)
     jmodel, jstate = jpl.init_state(jcfg, mesh=None)
-    tstate = state_from_jax(jstate, tcfg)
+    tstate = state_from_jax(jstate, tcfg, device="cpu")
     return jmodel, jstate.params, tstate.params
 
 
@@ -223,7 +223,7 @@ def test_sparse_step_trajectory_matches_jax(momentum, shared, compute_dtype):
                        sparse_updates=True, compute_dtype=compute_dtype,
                        momentum_carrier="dense" if momentum else "auto")
     jmodel, jstate = jpl.init_state(jcfg, mesh=None)
-    tstate = state_from_jax(jstate, tcfg)
+    tstate = state_from_jax(jstate, tcfg, device="cpu")
     rng = np.random.default_rng(11)
     jcorpus, tcorpus = _corpus(rng)
     base_key = jax.random.PRNGKey(7)
@@ -252,7 +252,7 @@ def test_dense_step_trajectory_matches_jax():
     jcfg, tcfg = _cfgs(momentum=0.98, shared_negatives=True,
                        compute_dtype="bfloat16")
     jmodel, jstate = jpl.init_state(jcfg, mesh=None)
-    tstate = state_from_jax(jstate, tcfg)
+    tstate = state_from_jax(jstate, tcfg, device="cpu")
     rng = np.random.default_rng(12)
     jcorpus, tcorpus = _corpus(rng)
     base_key = jax.random.PRNGKey(8)
@@ -341,7 +341,7 @@ def test_state_from_jax_carries_step_params_and_momentum():
                                               jax.random.PRNGKey(0)))
     jb, _ = _batch(np.random.default_rng(1), 3, 3, 4)
     jstate, _ = step(jstate, jb)
-    tstate = state_from_jax(jstate, tcfg)
+    tstate = state_from_jax(jstate, tcfg, device="cpu")
     assert tstate.step == 1
     for name in TABLES:
         np.testing.assert_array_equal(
