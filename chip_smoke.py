@@ -15,8 +15,9 @@ the result line:
                 scan at B=8, 13 and 64 over the full 2,265,088-column
                 catalog with planted copies of one vector, the
                 shared-memory scatter against its plain version and
-                scatter_add at the album table (and its refusal of the
-                artist table);
+                scatter_add at the album table, at both edges of its CTA
+                row ranges (rows hit once bit-equal) and at a pile-up
+                (and its refusal of the artist table);
   4. train    - the main path's training half: the quality flagship
                 (feature_size 32, 100,000 album buckets, 295,861 artists,
                 B=2048, C=5, M=32, a shared pool of 512 negatives,
@@ -43,7 +44,7 @@ the result line:
   7. tool     - the port's scatter_attempt (shared-memory scatter,
                 scatter_add, index_add_ at the album table and a half-size
                 one), then the shared-memory scatter timed at the album
-                table.
+                table and with every id on one row.
 
 Each main-path phase (train, serve, int8, tool) sets the launch counts to
 0 just before it and reads them just after. A line gives the seconds each
@@ -75,6 +76,11 @@ POOL_TOL = 1e-6               # pooled lookup: K float32 rows in two orders
 # 76,288 float32 adds into one row in two orders: partial sums reach about
 # 3, so the two sums may part by about sqrt(n) float32 ulps of 3
 PILEUP_ATOL = 5e-4
+# smem_scatter's previous design (whole table copied through shared memory,
+# every CTA reading every id) at the album table with the L2 cache flushed:
+# its time in PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W),
+# logged beside this run's time, not re-run
+SMEM_SCATTER_PREVIOUS_MS = 0.0350
 STEPS = 20                    # training steps of the main path
 K_STEPS = 5                   # steps compared, kernels against plain
 # kernels against plain over K steps: atomics sum duplicate rows in
@@ -549,10 +555,35 @@ def check_fused_int8(card: str) -> float:
     return worst
 
 
+def smem_edge_ids(R: int, D: int, step: int, dup: int, gen):
+    """Ids at both edges of the card's smem_scatter plan's CTA ranges: for
+    every ``step``-th CTA c and the plan's last (ragged when R cuts its
+    range short), its first and last rows and the row before its first
+    (the last of CTA c - 1); with step 3, CTAs c + 1 get no id. Each id
+    ``dup`` times, shuffled, with -1 and R (dropped) among them."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import smem_scatter as ss
+
+    ctas, per = ss.smem_plan(R, D, *ss.smem_budget(torch.device("cuda")))
+    edges = []
+    for c in sorted(set(range(0, ctas, step)) | {ctas - 1}):
+        r0 = c * per
+        edges += [r0 - 1, r0, min(R, r0 + per) - 1]
+    ids = torch.tensor(sorted({e for e in edges if e >= 0}) * dup + [-1, R],
+                       dtype=torch.int32, device="cuda")
+    return ids[torch.randperm(ids.numel(), generator=gen,
+                              device="cuda")], ctas, per
+
+
 def check_smem_scatter(card: str):
     """smem_scatter against its plain version at ragged shapes with dropped
     out-of-range ids, against its plain version and scatter_add at the
-    album table with the step's 76,288 ids, with every id on one row, and
+    album table with the step's 76,288 ids (rows hit once bit-equal), at
+    both edges of every CTA range of the card's plan and of every third
+    (the others empty), each id once (bit-equal) and three times (the
+    duplicates of rows on both sides of a boundary), with every id on one
+    row, and
     its refusal of the artist table. Returns (max err, pile-up err)."""
     import torch
 
@@ -573,7 +604,31 @@ def check_smem_scatter(card: str):
         torch.cuda.synchronize()
         torch.testing.assert_close(k, p, rtol=TOL, atol=TOL)
         torch.testing.assert_close(k, a, rtol=TOL, atol=TOL)
+        # a row hit once is table + u in both versions, bit for bit
+        ok = ids[(ids >= 0) & (ids < R)].long()
+        once = torch.bincount(ok, minlength=R) == 1
+        if not torch.equal(k[once], p[once]):
+            raise AssertionError(f"smem_scatter D={D} R={R} n={n}: a row "
+                                 f"hit once differs from the plain version")
         err = max(err, float((k - p).abs().max()))
+    edges = []
+    for D, R in ((3, 50_003), (32, 100_096), (64, 50_003)):
+        table = torch.randn(R, D, generator=gen, device="cuda")
+        for step, dup in ((1, 1), (1, 3), (3, 1), (3, 3)):
+            ids, ctas, per = smem_edge_ids(R, D, step, dup, gen)
+            upd = torch.randn(ids.numel(), D, generator=gen,
+                              device="cuda") * 1e-3
+            k = ss.smem_scatter_cuda(table.clone(), ids, upd)
+            p = ss.smem_scatter_plain(table.clone(), ids, upd)
+            torch.cuda.synchronize()
+            if dup == 1 and not torch.equal(k, p):
+                raise AssertionError(f"smem_scatter D={D} R={R} step "
+                                     f"{step}: distinct edge ids differ "
+                                     f"from the plain version")
+            torch.testing.assert_close(k, p, rtol=TOL, atol=TOL)
+            err = max(err, float((k - p).abs().max()))
+        edges.append(f"D={D} R={R} ({ctas} CTAs of {per} rows, the last "
+                     f"{R - (ctas - 1) * per})")
     # every id equal: 76,288 updates pile onto one row of the album table
     table = torch.randn(100_096, 32, generator=gen, device="cuda")
     upd = torch.randn(76_288, 32, generator=gen, device="cuda") * 1e-2
@@ -594,9 +649,12 @@ def check_smem_scatter(card: str):
         raise AssertionError("smem_scatter took the artist table")
     log(f"kernel smem_scatter: D in (3, 32, 64), n in (1, 777, 76288) with "
         f"dropped out-of-range ids, the album table against scatter_add: "
-        f"ok, max_abs_err {err:.3g}; 76,288 updates on one row: max_abs_err "
-        f"{pile:.3g} (bound {PILEUP_ATOL}); artist table refused: "
-        f"{refused} [{card}]")
+        f"ok, rows hit once bit-equal; ids at both edges of every CTA "
+        f"range and of every third (the CTAs after them empty), once "
+        f"(bit-equal) and three times each, {'; '.join(edges)}: ok; "
+        f"max_abs_err {err:.3g}; "
+        f"76,288 updates on one row: max_abs_err {pile:.3g} (bound "
+        f"{PILEUP_ATOL}); artist table refused: {refused} [{card}]")
     return err, pile
 
 
@@ -607,20 +665,21 @@ def rows_bytes(ids, dim: int) -> int:
     return int(torch.unique(ids).numel()) * dim * 4
 
 
-def cold_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn`` in ms with the 50 MB L2 cache
-    flushed before each call, as the train step finds its tables after the
-    rest of the step has streamed through the cache: the device rows of a
-    torch.profiler trace, less the flush's own rows (a bitwise NOT over
-    256 MiB of bytes, an op none of the timed functions uses, found by its
-    name). CUDA events around a few-microsecond call would time the host's
-    launch instead."""
+def cold_rows(fn, reps: int = 20) -> dict:
+    """Device time of one call of ``fn`` in ms, per kernel it launches,
+    with the 50 MB L2 cache flushed before each call, as the train step
+    finds its tables after the rest of the step has streamed through the
+    cache: the device rows of a torch.profiler trace, less the flush's own
+    rows (a bitwise NOT over 256 MiB of bytes, an op none of the timed
+    functions uses, found by its name). CUDA events around a
+    few-microsecond call would time the host's launch instead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -632,10 +691,24 @@ def cold_ms(fn, reps: int = 20) -> float:
     flushes = [k for k in rows if "bitwise_not" in k]
     if not flushes:
         raise RuntimeError("the profiler trace holds no flush rows")
-    total = sum(t for k, t in rows.items() if k not in flushes)
-    if not total:
+    timed = {k: t / 1e3 / reps for k, t in rows.items() if k not in flushes}
+    if not timed:
         raise RuntimeError("the profiler trace holds no device time")
-    return total / 1e3 / reps
+    return timed
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """``cold_rows`` summed: the device time of one whole call in ms."""
+    return sum(cold_rows(fn, reps).values())
+
+
+def launch_split(rows: dict) -> str:
+    """``cold_rows``' kernels by their short names, in us."""
+    import re
+
+    short = sorted(((re.search(r"\w+_kernel", k) or [k])[0], t)
+                   for k, t in rows.items())
+    return " + ".join(f"{name} {t * 1e3:.1f}" for name, t in short)
 
 
 def time_kernel(kernel, plain, library):
@@ -1246,7 +1319,7 @@ def phase_int8(card: str, ctx: dict) -> dict:
 
 def phase_tool(card: str) -> dict:
     """The port's scatter_attempt tool, then smem_scatter timed at the
-    album table with the tool's inputs."""
+    album table with the tool's inputs and with every id on one row."""
     import numpy as np
     import torch
 
@@ -1281,25 +1354,30 @@ def phase_tool(card: str) -> dict:
     upd = torch.from_numpy((rng.normal(size=(n, D)) * 1e-4)
                            .astype(np.float32)).cuda()
     tk, tp, tl = table.clone(), table.clone(), table.clone()
-    ms, plain_ms, lib_ms = time_kernel(
-        lambda: ss.smem_scatter_cuda(tk, ids, upd),
-        lambda: ss.smem_scatter_plain(tp, ids, upd),
-        lambda: tl.index_add_(0, ids, upd))
+    split = cold_rows(lambda: ss.smem_scatter_cuda(tk, ids, upd))
+    ms = sum(split.values())
+    plain_ms = cold_ms(lambda: ss.smem_scatter_plain(tp, ids, upd))
+    lib_ms = cold_ms(lambda: tl.index_add_(0, ids, upd))
+    # every id on one row: one CTA takes all the work
+    same = torch.full((n,), 7, dtype=torch.int32, device="cuda")
+    pile = cold_rows(lambda: ss.smem_scatter_cuda(tk, same, upd))
+    pile_ms = sum(pile.values())
     # the function, in place, moves only the rows its ids touch, as
-    # scatter_add's bound counts them; the kernel's whole-table copy in and
-    # out is a cost of its design, logged beside the bound
+    # scatter_add's bound counts them
     distinct = rows_bytes(ids, D)
     moved = 2 * distinct + n * D * 4 + n * 4
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    design = 2 * R * D * 4 + n * D * 4 + n * 4
     log(f"kernel smem_scatter at the album table ({R} x {D}, {n} ids, "
-        f"{distinct // (D * 4)} distinct), device time per call with the L2 "
-        f"cache flushed before it (profiler, 20 calls): {ms * 1e3:.1f} us "
-        f"(plain {plain_ms * 1e3:.1f}, index_add_ {lib_ms * 1e3:.1f}, bound "
-        f"{bound_ms * 1e3:.1f} by bytes, {moved / 1e6:.1f} MB: the touched "
-        f"rows read and written, updates and ids read; the design's whole-"
-        f"table copy in and out moves {design / 1e6:.1f} MB, "
-        f"{design / HBM_BYTES_PER_S * 1e6:.1f} us) [{card}]")
+        f"{distinct // (D * 4)} distinct), device time per call (both "
+        f"launches) with the L2 cache flushed before it (profiler, 20 "
+        f"calls): {ms * 1e3:.1f} us (previous design "
+        f"{SMEM_SCATTER_PREVIOUS_MS * 1e3:.1f}, not re-run; plain "
+        f"{plain_ms * 1e3:.1f}, index_add_ {lib_ms * 1e3:.1f}, "
+        f"{ms / lib_ms:.2f} of it; bound {bound_ms * 1e3:.1f} by bytes, "
+        f"{moved / 1e6:.1f} MB: the touched rows read and written, updates "
+        f"and ids read), per launch {launch_split(split)}; all {n} ids on "
+        f"one row: {pile_ms * 1e3:.1f} us, per launch {launch_split(pile)} "
+        f"[{card}]")
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
 

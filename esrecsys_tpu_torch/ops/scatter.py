@@ -29,9 +29,10 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
 
 def vmem_scatter_add(table: torch.Tensor, ids: torch.Tensor,
                      updates: torch.Tensor) -> torch.Tensor:
-    """``table.at[ids].add(updates)`` through a table held whole in
-    on-chip memory (the reference's ``vmem_scatter_add_phys``, on the
-    logical (R, D) float32 table rather than its 128-lane packed form).
+    """``table.at[ids].add(updates)`` through per-SM sums in on-chip
+    memory, the table cut by row range over one wave of CTAs (the
+    reference's ``vmem_scatter_add_phys``, on the logical (R, D) float32
+    table rather than its 128-lane packed form).
     Updates ``table`` IN PLACE and returns it; ids outside ``[0, R)`` are
     dropped. Raises ValueError naming the shared memory when the table
     does not fit the card's (the flagship album table fits, the artist

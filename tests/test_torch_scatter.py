@@ -17,7 +17,15 @@ kernel (the tolerance of ``tests/test_scatter.py:22``).
 plain version of ``kernels/smem_scatter.py``) is held against the JAX
 Pallas kernel in interpret mode, as ``tests/test_scatter.py:75`` runs it,
 within the same 1e-5: both add unit-normal rows into a unit-normal table,
-one serially, one in PyTorch's order.
+one serially, one in PyTorch's order. Its CTA-edge inputs put ids at both
+edges of the CTA row ranges of the kernel's H100 plan (H100 figures apply
+on the CPU): each id once, where both versions compute ``table + u`` and
+the port must equal ``np.add.at`` bit for bit, and three times, the
+duplicates of the rows on both sides of a boundary summed in other orders
+(1e-5 as above). On the CPU these run the plain version, which knows
+nothing of CTA ranges: the kernel's own binning and write-back at those
+edges are checked on the card only, by ``chip_smoke.py``'s
+``check_smem_scatter``.
 """
 
 import jax.numpy as jnp
@@ -105,9 +113,37 @@ def test_check_rejects_bad_inputs():
                             torch.ones(2, 8, dtype=torch.float64))
 
 
-def test_vmem_scatter_matches_jax_interpret():
-    R, N, dim = 512, 700, 32
-    table, ids, upd = _case(R, N, dim, seed=3)
+# the H100 plan of a (1004, 32) table: 126 CTAs of 8 rows, the last 4
+EDGE_ROWS = 1004
+
+
+def _plan_edge_ids(R, dim, step, dup):
+    """Each id ``dup`` times, shuffled: the first and last rows of every
+    ``step``-th CTA of the H100 plan and of its last, and the row before
+    each first."""
+    ctas, per = tsmem.smem_plan(R, dim, tsmem.H100_SMS,
+                                tsmem.H100_SMEM_PER_BLOCK)
+    assert (ctas, per) == (126, 8) and R - (ctas - 1) * per == 4
+    owners = sorted(set(range(0, ctas, step)) | {ctas - 1})
+    edges = sorted({e for c in owners
+                    for e in (c * per - 1, c * per, min(R, c * per + per) - 1)
+                    if e >= 0})
+    ids = np.random.default_rng(step * 10 + dup).permutation(edges * dup)
+    if step > 1:  # some CTAs get no id
+        assert len(set((ids // per).tolist())) < ctas
+    return ids.astype(np.int32)
+
+
+# (rows, ids): 700 random ids, then ids at the H100 plan's CTA edges
+@pytest.mark.parametrize("R,edges", [
+    (512, None), (EDGE_ROWS, (1, 1)), (EDGE_ROWS, (1, 3)),
+    (EDGE_ROWS, (3, 1)), (EDGE_ROWS, (10_000, 1))],
+    ids=["random", "every_edge", "duplicates_across_edges", "empty_owners",
+         "ragged_last"])
+def test_vmem_scatter_matches_jax_interpret(R, edges):
+    dim = 32
+    ids = None if edges is None else _plan_edge_ids(R, dim, *edges)
+    table, ids, upd = _case(R, 700, dim, seed=3, ids=ids)
     pack = 128 // dim
     want = np.asarray(vmem_scatter_add_phys(
         jnp.asarray(table).reshape(R // pack, 128), jnp.asarray(ids),
@@ -117,6 +153,19 @@ def test_vmem_scatter_matches_jax_interpret():
     out = vmem_scatter_add(t, torch.from_numpy(ids), torch.from_numpy(upd))
     assert out is t and tsmem.LAUNCHES.count == before
     np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+    if edges is not None and edges[1] == 1:
+        exact = table.copy()
+        np.add.at(exact, ids, upd)
+        np.testing.assert_array_equal(out.numpy(), exact)
+
+
+def test_smem_scratch_holds_pairs_and_per_chunk_counts():
+    ctas, _ = tsmem.smem_plan(100_096, 32, tsmem.H100_SMS,
+                              tsmem.H100_SMEM_PER_BLOCK)
+    # two int32 per id, a count and an offset per (owner, chunk)
+    assert tsmem.scratch_size(76_288, ctas) == 2 * 76_288 + 2 * ctas * ctas
+    # about 0.75 MB at the train step's shape
+    assert tsmem.scratch_size(76_288, ctas) * 4 < 800_000
 
 
 @pytest.mark.parametrize("rows,dim", [(295_936, 32), (40_000, 256)])
@@ -135,6 +184,18 @@ def test_smem_plan_holds_the_album_table_in_one_wave():
     assert ctas <= tsmem.H100_SMS and ctas * per_cta >= 100_096
     assert per_cta * 32 * 4 <= tsmem.H100_SMEM_PER_BLOCK
     assert tsmem.smem_budget(torch.device("cpu")) == (132, 232_448)
+
+
+# the plans chip_smoke.py's CTA-edge checks run on the card: (rows, dim,
+# CTAs, rows per CTA, rows of the ragged last CTA)
+@pytest.mark.parametrize("rows,dim,ctas,per,last", [
+    (50_003, 3, 132, 379, 354), (100_096, 32, 132, 759, 667),
+    (50_003, 64, 132, 379, 354)])
+def test_smem_plan_cuts_each_row_to_one_cta(rows, dim, ctas, per, last):
+    assert tsmem.smem_plan(rows, dim, tsmem.H100_SMS,
+                           tsmem.H100_SMEM_PER_BLOCK) == (ctas, per)
+    # every CTA's range is whole but the last, which is ragged, not empty
+    assert rows - (ctas - 1) * per == last and 0 < last < per
 
 
 def test_vmem_scatter_drops_out_of_range_ids():
@@ -174,3 +235,4 @@ def test_scatter_attempt_tool_needs_a_card(monkeypatch):
         scatter_attempt.main(["--iters", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         scatter_attempt.measure(512, 1)
+
