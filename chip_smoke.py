@@ -81,6 +81,9 @@ PILEUP_ATOL = 5e-4
 # its time in PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W),
 # logged beside this run's time, not re-run
 SMEM_SCATTER_PREVIOUS_MS = 0.0350
+# fused_affinity's previous (mma.sync) design at the eval shape: PERF.md,
+# NVIDIA H100 80GB HBM3 at 700 W; logged beside the new time, not re-run
+AFFINITY_PREVIOUS_MS = 17.646
 STEPS = 20                    # training steps of the main path
 K_STEPS = 5                   # steps compared, kernels against plain
 # kernels against plain over K steps: atomics sum duplicate rows in
@@ -455,24 +458,70 @@ def affinity_case(gen, B, C, D, M, L, bound, dup=False):
             actx, artx)
 
 
+def affinity_ids(case: str, args, M: int) -> None:
+    """Rewrite the context and catalog ids of affinity inputs ``args`` in
+    place for one membership edge case of the kernel's hash tables:
+    ``shared`` (every query of the tile holds the same ids: every mask bit
+    set), ``colliding`` (64 x C distinct ids in one probe chain, items
+    holding them and other ids of the chain) or ``special`` (the padding
+    ids -1 and -2, the int32 extremes, one id repeated in a query's
+    slots)."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_affinity as fa
+
+    _, _, album, artist, actx, artx = args
+    B, C = actx.shape
+    g = torch.arange(0, M, 3, device="cuda")
+    if case == "shared":
+        actx[:] = actx[0].clone()
+        artx[:] = artx[0].clone()
+    elif case == "colliding":
+        for ctx, cat, slot in ((actx, album, 3), (artx, artist, 900)):
+            chain = fa.colliding_ids(B * C + 40, slot).cuda()
+            ctx.copy_(chain[:B * C].view(B, C))
+            cat[g] = chain[g % chain.numel()]
+    elif case == "special":
+        ext = torch.tensor([-1, -2, -2**31, 2**31 - 1, 7], device="cuda",
+                           dtype=torch.int32)
+        for ctx, cat in ((actx, album), (artx, artist)):
+            ctx.copy_(ext[torch.randint(0, 5, (B, C), device="cuda")])
+            ctx[1] = ctx[1, 0].item()
+            cat[g] = ext[g % 5]
+    else:
+        raise ValueError(case)
+
+
 def check_affinity(card: str) -> float:
-    """fused_affinity against its plain version at ragged shapes and with
-    exact ties; the full eval shape is checked in the train phase."""
+    """fused_affinity against its plain version at ragged shapes, with
+    exact ties, at the membership tables' edge cases (``affinity_ids``) and
+    with ``bound`` at and past a block edge; the full eval shape is checked
+    in the train phase. Tolerance: compare_top2's TOL on values, equal ids
+    at exact ties."""
     import torch
 
     from esrecsys_tpu_torch.kernels import fused_affinity as fa
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = 0.0
-    for B, C, D, M, L, bound, dup in (
-            (13, 5, 64, 100_003, 128, 100_003, False),
-            (1, 1, 64, 10_007, 128, 9_001, False),
-            (70, 5, 32, 20_011, 256, 20_011, False),
-            (64, 8, 128, 5_000, 128, 4_999, False),
-            (130, 5, 64, 100_003, 4096, 97_001, False),
-            (8, 5, 64, 100_003, 128, 100_003, True),
-            (8, 5, 64, 100_003, 4096, 100_003, True)):
+    for B, C, D, M, L, bound, dup, ids in (
+            (13, 5, 64, 100_003, 128, 100_003, False, None),
+            (1, 1, 64, 10_007, 128, 9_001, False, None),
+            (70, 5, 32, 20_011, 256, 20_011, False, None),
+            (64, 8, 128, 5_000, 128, 4_999, False, None),
+            (40, 1, 32, 10_007, 256, 10_007, False, None),
+            (130, 5, 64, 100_003, 4096, 97_001, False, None),
+            (13, 5, 64, 100_003, 4096, 3 * 4096, False, None),
+            (13, 5, 64, 100_003, 4096, 3 * 4096 + 1, False, None),
+            (8, 5, 64, 100_003, 128, 100_003, True, None),
+            (8, 5, 64, 100_003, 4096, 100_003, True, None),
+            (64, 5, 64, 20_011, 128, 20_011, False, "shared"),
+            (64, 5, 64, 20_011, 128, 20_011, False, "colliding"),
+            (64, 8, 64, 20_011, 128, 20_011, False, "colliding"),
+            (70, 5, 64, 20_011, 128, 20_011, False, "special")):
         args = affinity_case(gen, B, C, D, M, L, bound, dup)
+        if ids:
+            affinity_ids(ids, args, M)
         kv, ki = fa.fused_affinity_cuda(*args, L, bound)
         pv, pi = fa.fused_affinity_plain(*args, L, bound)
         torch.cuda.synchronize()
@@ -481,9 +530,10 @@ def check_affinity(card: str) -> float:
             raise AssertionError("the duplicate-items case holds no tie")
         worst = max(worst, err)
         log(f"kernel fused_affinity B={B} C={C} D={D} M={M} L={L} "
-            f"bound={bound}{' duplicated items' if dup else ''}: ok, "
-            f"max_abs_err {err:.3g}, exact-tie slots {exact} (ids equal "
-            f"there), near-tie id slots {near} [{card}]")
+            f"bound={bound}{' duplicated items' if dup else ''}"
+            f"{f' {ids} ids' if ids else ''}: ok, max_abs_err {err:.3g}, "
+            f"exact-tie slots {exact} (ids equal there), near-tie id slots "
+            f"{near} [{card}]")
     # an empty batch launches nothing
     args = affinity_case(gen, 0, 5, 64, 1000, 128, 1000)
     kv, _ = fa.fused_affinity_cuda(*args, 128, 1000)
@@ -876,7 +926,8 @@ def phase_train(card: str, work: str) -> dict:
               >= aff_bytes / HBM_BYTES_PER_S else "bytes")
     log(f"kernel fused_affinity B={B} C={C} D={D} Mp={Mp} L={L} (the eval "
         f"batch): ok, max_abs_err {aff_err:.3g}, near-tie id slots {near}, "
-        f"exact-tie slots {exact}; {aff_ms:.3f} ms (mean of 5, CUDA events) "
+        f"exact-tie slots {exact}; {aff_ms:.3f} ms (mean of 5, CUDA events; "
+        f"the previous design {AFFINITY_PREVIOUS_MS} ms, from PERF.md) "
         f"against its bound {aff_bound:.3f} ms by {aff_by} "
         f"({aff_flops:.3e} bf16 operations), plain version {aff_plain_ms:.1f}"
         f" ms (one call, host clock) [{card}]")

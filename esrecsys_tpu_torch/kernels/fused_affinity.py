@@ -2,7 +2,7 @@
 plain PyTorch version.
 
 ``fused_affinity`` replaces the TPU kernel ``_affinity_kernel`` of
-``esrecsys_tpu/retrieval/fused.py`` (launched by
+``esrecsys_tpu/retrieval/fused.py:453`` (launched by
 ``binned_affinity_candidates``). For each query b, with context slots
 ``q[b, c]``, and each catalog item g < ``bound``:
 
@@ -15,9 +15,20 @@ max; items at or past ``bound`` score -inf. Item g falls in bin
 the catalog blocks in ascending order with a strict ``>`` (the earlier
 block wins ties; slots never filled keep (-inf, 0)).
 
+The kernel (``csrc/fused_affinity.cu``) is bound by operations: 2.965e12
+bf16 operations at the eval shape, 3.0 ms at the H100's 989 TFLOP/s. A
+CTA scores 64 bins against 64 queries with ``wgmma`` (the TMA-copied
+catalog tile as A, all context slots' queries as B, both read from shared
+memory), takes the max over the slots inside each thread, reads the
+boosts as one bit of a per-item mask of the CTA's queries (a hash table of
+the CTA's context ids, looked up once per item by the producer warps:
+:func:`membership_masks` is its plain twin) and folds branch-free while
+the next block's products run. The header of the source and PERF.md hold
+its measured time.
+
 A CPU tensor takes :func:`fused_affinity_plain`; a CUDA tensor launches the
-kernel in ``csrc/fused_affinity.cu`` or raises. ``LAUNCHES.count`` counts
-the kernel's launches.
+kernel or raises. ``LAUNCHES.count`` counts the kernel's launches. The
+kernel allocates nothing: the wrapper allocates the outputs.
 """
 
 from __future__ import annotations
@@ -32,6 +43,9 @@ from esrecsys_tpu_torch.kernels.build import LaunchCounter, load_library
 NEG_INF = float("-inf")
 SUPPORTED_DIMS = (32, 64, 128)  # the kernel's instantiations
 MAX_SLOTS = 8                   # context slots the kernel takes
+TILE_QUERIES = 64               # queries per CTA: the bits of a mask
+TABLE_BITS = 10                 # the kernel's hash table: 2^10 slots a kind
+_HASH = 2654435761              # the table's multiplicative hash
 
 LAUNCHES = LaunchCounter()
 
@@ -105,6 +119,68 @@ def fused_affinity_plain(q: torch.Tensor, items_packed: torch.Tensor,
         m2 = torch.where(better2, loser_v, m2)
         id2 = torch.where(better2, loser_i, id2)
     return torch.cat([m1, m2], dim=-1), torch.cat([id1, id2], dim=-1)
+
+
+def table_slot(ids: torch.Tensor) -> torch.Tensor:
+    """The kernel's hash of int32 ids (int64 out): the top ``TABLE_BITS``
+    bits of ``uint32(id) * 2654435761 mod 2^32``."""
+    u = ids.to(torch.int64) & 0xFFFFFFFF
+    return ((u * _HASH) & 0xFFFFFFFF) >> (32 - TABLE_BITS)
+
+
+def colliding_ids(n: int, slot: int = 0) -> torch.Tensor:
+    """``n`` (<= 2^22) distinct int32 ids that all hash to ``slot``: the
+    table's worst case, one probe chain."""
+    inv = pow(_HASH, -1, 1 << 32)
+    u = torch.tensor([(inv * ((slot << (32 - TABLE_BITS)) + r)) % (1 << 32)
+                      for r in range(n)], dtype=torch.int64)
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+
+
+def membership_masks(ctx: torch.Tensor, item_ids: torch.Tensor
+                     ) -> torch.Tensor:
+    """The kernel's membership lookup in plain PyTorch, one id kind:
+    (ceil(B / 64), M) int64 whose entry [t, g] has bit i set when query
+    64 t + i holds ``item_ids[g]`` among its context ids ``ctx`` (B, C).
+
+    As in the kernel, each 64-query tile's ids go into an open-addressing
+    table of 2^TABLE_BITS slots keyed by the id tagged with bit 32 (so
+    every int32 is a key and 0 marks an empty slot), probed linearly from
+    :func:`table_slot`, whose value ORs the holders' query bits; each item
+    id is then looked up the same way. The table holds at most 64 x 8 =
+    512 keys, so every probe meets an empty slot."""
+    B, C = ctx.shape
+    T = 1 << TABLE_BITS
+    ctx = ctx.cpu()
+    tags = (item_ids.cpu().to(torch.int64) & 0xFFFFFFFF) | (1 << 32)
+    start = table_slot(item_ids.cpu())
+    out = []
+    for t0 in range(0, B, TILE_QUERIES):
+        keys, masks = [0] * T, [0] * T
+        tile = ctx[t0:t0 + TILE_QUERIES]
+        for qi, (row, slots) in enumerate(zip(tile.tolist(),
+                                              table_slot(tile).tolist())):
+            for key, s in zip(row, slots):
+                tag = (key & 0xFFFFFFFF) | (1 << 32)
+                while keys[s] not in (0, tag):
+                    s = (s + 1) % T
+                keys[s] = tag
+                masks[s] |= 1 << qi
+        keys_t = torch.tensor(keys, dtype=torch.int64)
+        masks_t = torch.tensor([m - (1 << 64) if m >= 1 << 63 else m
+                                for m in masks], dtype=torch.int64)
+        found = torch.zeros(tags.shape, dtype=torch.int64)
+        live = torch.ones(tags.shape, dtype=torch.bool)
+        s = start.clone()
+        while bool(live.any()):
+            k = keys_t[s]
+            hit = live & (k == tags)
+            found = torch.where(hit, masks_t[s], found)
+            live = live & ~hit & (k != 0)
+            s = torch.where(live, (s + 1) % T, s)
+        out.append(found)
+    return torch.stack(out) if out else torch.zeros((0, tags.shape[0]),
+                                                    dtype=torch.int64)
 
 
 def typed_library() -> ctypes.CDLL:

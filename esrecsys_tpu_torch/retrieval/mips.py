@@ -46,21 +46,28 @@ def topk_lower_index_first(vals: torch.Tensor, k: int
     return v[..., :k], i[..., :k]
 
 
-def top_ids_lower_index_first(vals: torch.Tensor, k: int) -> torch.Tensor:
-    """Ids of the k largest of ``vals`` (..., n) float32 over the last
-    axis, in :func:`topk_lower_index_first`'s order, from one
-    ``torch.topk`` over int64 keys: the float's order-preserving integer
-    image in the high 32 bits (-0.0 counted as +0.0), the reversed index
-    in the low 32. On a 262,144-wide block a stable sort costs far more;
-    on the few thousand candidates of a rescore the sort is cheaper (a
-    ``torch.topk`` with k=500 of 8,192 sorts as well, then gathers)."""
+def order_keys(vals: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose descending order is ``vals`` (float32) descending,
+    equal values by ascending ``ids`` (0 <= id < 2^32): the float's
+    order-preserving integer image in the high 32 bits (-0.0 counted as
+    +0.0), the reversed id in the low 32. Ids come back as
+    ``0xFFFFFFFF - (key & 0xFFFFFFFF)``."""
     if vals.dtype != torch.float32:
         raise TypeError(f"expected float32 scores, got {vals.dtype}")
     bits = (vals + 0.0).contiguous().view(torch.int32).to(torch.int64)
     ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    return ordered * (1 << 32) + (0xFFFFFFFF - ids)
+
+
+def top_ids_lower_index_first(vals: torch.Tensor, k: int) -> torch.Tensor:
+    """Ids of the k largest of ``vals`` (..., n) float32 over the last
+    axis, in :func:`topk_lower_index_first`'s order, from one
+    ``torch.topk`` over :func:`order_keys` of the positions. On a
+    262,144-wide block a stable sort costs far more; on the few thousand
+    candidates of a rescore the sort is cheaper (a ``torch.topk`` with
+    k=500 of 8,192 sorts as well, then gathers)."""
     idx = torch.arange(vals.shape[-1], device=vals.device)
-    key = ordered * (1 << 32) + (0xFFFFFFFF - idx)
-    top = torch.topk(key, k, dim=-1).values
+    top = torch.topk(order_keys(vals, idx), k, dim=-1).values
     return 0xFFFFFFFF - (top & 0xFFFFFFFF)
 
 
@@ -103,22 +110,19 @@ def topk_over_matrix(
     k_eff = min(k, num_items)
     bound = valid_bound(num_items, valid_count)
     vals = queries.new_empty((B, 0))
-    idxs = torch.empty((B, 0), dtype=torch.int64, device=queries.device)
+    keys = torch.empty((B, 0), dtype=torch.int64, device=queries.device)
     for start in range(0, bound, block_size):
         stop = min(start + block_size, bound)
         s = queries @ items[start:stop].T
         if item_mask is not None:
             s = s.masked_fill(~item_mask[start:stop], NEG_INF)
-        ids = torch.arange(start, stop, device=queries.device).expand(B, -1)
+        ids = torch.arange(start, stop, device=queries.device)
+        # keys over global ids: the cut keeps the lowest ids among ties
         vals = torch.cat([vals, s], dim=-1)
-        idxs = torch.cat([idxs, ids], dim=-1)
-        vals, sel = torch.topk(vals, min(k_eff, vals.shape[-1]), dim=-1)
-        idxs = torch.gather(idxs, -1, sel)
-    # canonical order: ascending id first, then a stable sort by value
-    order = torch.argsort(idxs, dim=-1, stable=True)
-    vals, idxs = torch.gather(vals, -1, order), torch.gather(idxs, -1, order)
-    vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
-    return pad_topk(vals, torch.gather(idxs, -1, order), k)
+        keys = torch.cat([keys, order_keys(s, ids)], dim=-1)
+        keys, sel = torch.topk(keys, min(k_eff, keys.shape[-1]), dim=-1)
+        vals = torch.gather(vals, -1, sel)
+    return pad_topk(vals, 0xFFFFFFFF - (keys & 0xFFFFFFFF), k)
 
 
 def chunked_topk(

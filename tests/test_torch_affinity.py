@@ -140,3 +140,49 @@ def test_check_rejects_bad_inputs():
         tkernel.fused_affinity(q, packed, pay[:10], pay, ids, ids, 128, 200)
     with pytest.raises(TypeError):
         tkernel.fused_affinity(q.float(), packed, pay, pay, ids, ids, 128, 1)
+
+
+def _membership_ids(kind, rng):
+    """(ctx (B, C), item ids (M,)) int32 for one membership case."""
+    if kind == "random":
+        ctx = rng.integers(0, 60, (70, 5))
+        items = rng.integers(0, 60, 400)
+    elif kind == "colliding":  # 64 x 8 distinct ids, one probe chain
+        ids = tkernel.colliding_ids(64 * 8 + 40, slot=3).numpy()
+        ctx = ids[:64 * 8].reshape(64, 8)
+        items = np.concatenate([ids, rng.integers(-5, 5, 100)])
+    elif kind == "one_set":  # every query of the tile holds the same ids
+        ctx = np.tile(rng.integers(0, 1000, 5), (64, 1))
+        items = rng.integers(0, 1000, 300)
+        items[:5] = ctx[0]
+    else:  # the padding ids, the int32 extremes, repeats in one query
+        ext = [-1, -2, -2**31, 2**31 - 1, 0]
+        ctx = rng.choice(ext + [7, 8], size=(66, 4))
+        ctx[3] = [7, 7, 7, 7]
+        items = np.array(ext + [7, 8, 9, -3, 2**31 - 2] * 3)
+    return ctx.astype(np.int32), items.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["random", "colliding", "one_set",
+                                  "special"])
+def test_membership_masks_match_batched_isin(kind):
+    """The kernel's hash-table membership (its plain twin) against the
+    reference's ``batched_isin`` on the same ids: exact."""
+    from esrecsys_tpu.models.playlist import batched_isin
+
+    ctx, items = _membership_ids(kind, np.random.default_rng(7))
+    want = np.asarray(batched_isin(
+        jnp.broadcast_to(jnp.asarray(items), (ctx.shape[0], items.shape[0])),
+        jnp.asarray(ctx)))
+    masks = tkernel.membership_masks(torch.from_numpy(ctx),
+                                     torch.from_numpy(items)).numpy()
+    b = np.arange(ctx.shape[0])
+    got = (masks[b // 64].view(np.uint64)
+           >> (b % 64).astype(np.uint64)[:, None]) & np.uint64(1)
+    np.testing.assert_array_equal(got.astype(bool), want)
+
+
+def test_colliding_ids_share_one_slot():
+    ids = tkernel.colliding_ids(600, slot=1000)
+    assert len(set(ids.tolist())) == 600
+    assert set(tkernel.table_slot(ids).tolist()) == {1000}

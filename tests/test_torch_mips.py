@@ -7,6 +7,7 @@ random data (no ties) and values agree within 1e-5 absolute: the scores
 are float32 dot products of width 16 whose sums run in another order.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,3 +71,35 @@ def test_topk_lower_index_first_is_lax_top_k_order():
     vals = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0, float("-inf")]])
     v, i = tmips.topk_lower_index_first(vals, 4)
     assert i.tolist() == [[1, 2, 4, 3]] and v.tolist() == [[3, 3, 3, 2]]
+
+
+@pytest.mark.parametrize("leaders", [0, 20])
+@pytest.mark.parametrize("block", [777, 1024, 262_144])
+def test_ties_at_the_cut_keep_the_lowest_ids(block, leaders):
+    """200 exact copies of the best vector among 5,000 x 8 items, k=50:
+    the cut runs through the tied copies (below ``leaders`` strictly
+    better items), so the merge of every block must keep the lowest ids,
+    as ``lax.top_k`` over the whole score matrix does. Integer-valued
+    inputs make every score exact in both frameworks."""
+    rng = np.random.default_rng(block + leaders)
+    q = rng.integers(1, 5, size=(6, 8)).astype(np.float32)
+    items = rng.integers(-3, 4, size=(5000, 8)).astype(np.float32)
+    spots = rng.choice(5000, size=200 + leaders, replace=False)
+    items[spots[:200]] = 4.0
+    items[spots[200:]] = 5.0
+    k = 50
+    full = jnp.dot(jnp.asarray(q), jnp.asarray(items).T,
+                   precision=jax.lax.Precision.HIGHEST)
+    lv, li = jax.lax.top_k(full, k)
+    rv, ri = jmips.topk_over_matrix(jnp.asarray(q), jnp.asarray(items), k,
+                                    block_size=block, group=0)
+    tv, ti = tmips.topk_over_matrix(torch.from_numpy(q),
+                                    torch.from_numpy(items), k,
+                                    block_size=block)
+    copies = np.sort(spots[:200])[:k - leaders]
+    for row in ti.numpy():
+        np.testing.assert_array_equal(row[leaders:], copies)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(li))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(lv))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(rv))
