@@ -13,7 +13,9 @@ the result line:
                 at ragged shapes, edge cases (ties, one repeated id, empty
                 batches) and the main path's full shapes: the int8 fused
                 scan at B=8, 13 and 64 over the full 2,265,088-column
-                catalog with planted copies of one vector, the
+                catalog with planted copies of one vector, and at B=8
+                with a planted runner-up sequence (v, v, then 2v in one
+                bin) and with a bound inside a block, the
                 shared-memory scatter against its plain version and
                 scatter_add at the album table, at both edges of its CTA
                 row ranges (rows hit once bit-equal) and at a pile-up
@@ -84,6 +86,10 @@ SMEM_SCATTER_PREVIOUS_MS = 0.0350
 # fused_affinity's previous (mma.sync) design at the eval shape: PERF.md,
 # NVIDIA H100 80GB HBM3 at 700 W; logged beside the new time, not re-run
 AFFINITY_PREVIOUS_MS = 17.646
+# fused_scan_int8's previous design (the int8 branch of fused_scan.cu: two
+# mma.sync warps a CTA, cp.async copies) at the served shape: PERF.md,
+# NVIDIA H100 80GB HBM3 at 700 W; logged beside the new time, not re-run
+FUSED_SCAN_INT8_PREVIOUS_MS = 0.1635
 STEPS = 20                    # training steps of the main path
 K_STEPS = 5                   # steps compared, kernels against plain
 # kernels against plain over K steps: atomics sum duplicate rows in
@@ -559,17 +565,39 @@ def int8_case(gen, M: int, D: int, L: int, dup: bool):
     return items, codes, scales
 
 
+def int8_runner_up(gen, M: int, D: int, L: int, bins):
+    """An int8 catalog of M items where each of ``bins`` holds one vector v
+    in blocks 0 and 1 and 2v in block 2, with queries near v: every query
+    scores 2v first and the block-1 copy of v second under the sequential
+    fold (a merge of per-block top-2 lists by lowest id would keep the
+    block-0 copy). Returns (q (8, D) bf16, codes, scales)."""
+    import torch
+
+    from esrecsys_tpu_torch.retrieval.fused import pack_catalog_int8
+
+    items = torch.randn(M, D, generator=gen, device="cuda")
+    v = 3 * torch.randn(D, generator=gen, device="cuda")
+    for j in bins:
+        items[j] = items[j + L] = v
+        items[j + 2 * L] = 2 * v
+    q = v + torch.randn(8, D, generator=gen, device="cuda")
+    codes, scales = pack_catalog_int8(items, L)
+    return q.to(torch.bfloat16), codes, scales
+
+
 def check_fused_int8(card: str) -> float:
     """fused_scan_int8 against its plain version: ragged catalogs with a
-    bound and a mask, the kernel's four dims, planted exact ties, and the
-    full 2,265,088-column catalog at B=8, 13 and 64."""
+    bound and a mask, the kernel's four dims at ragged batches, planted
+    exact ties, and the full 2,265,088-column catalog at B=8, 13 and 64,
+    with a planted runner-up sequence and a bound inside a block."""
     import torch
 
     from esrecsys_tpu_torch.kernels import fused_scan as fs
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = 0.0
-    cases = [(D, 10_007, 128, False, (13,)) for D in (16, 32, 128)]
+    cases = [(D, 10_007, 128, False, (1, 9, 13) if D < 64 else (13,))
+             for D in (16, 32, 128)]
     cases += [(64, 100_003, L, dup, (1, 8, 13))
               for L in (128, 4096) for dup in (False, True)]
     cases.append((64, 2_262_292, 4096, True, (8, 13, 64)))
@@ -602,6 +630,41 @@ def check_fused_int8(card: str) -> float:
                     f"{err:.3g}, exact-tie slots {exact} (ids equal there), "
                     f"near-tie id slots {near} [{card}]")
         del items, codes, scales
+    # the runner-up sequence at the full catalog, with the 2v items scored,
+    # masked out, and past a bound that ends inside a block (the 2v items
+    # lie in block 2, ids 2L + j, so a bound of 2L + 3 leaves out every
+    # planted one), then with a bound inside block 244 and a mask
+    M, D, L = 2_262_292, 64, 4096
+    bins = (3, 5, 2_000, L - 1)
+    q, codes, scales = int8_runner_up(gen, M, D, L, bins)
+    Mp = codes.shape[1]
+    no_2v = torch.ones(Mp, dtype=torch.bool, device="cuda")
+    no_2v[[j + 2 * L for j in bins]] = False
+    half = torch.rand(Mp, generator=gen, device="cuda") > 0.5
+    half[[j + k * L for j in bins for k in range(3)]] = True
+    for name, bound, msk, lead in (
+            ("2v scored", M, None, 2),
+            ("2v masked", M, no_2v, 0),
+            ("2v past the bound", 2 * L + 3, None, 0),
+            ("bound 1,000,017 inside a block, mask", 1_000_017, half, 2)):
+        kv, ki = fs.fused_scan_int8_cuda(q, codes, scales, L, bound, msk)
+        pv, pi = fs.fused_scan_int8_plain(q, codes, scales, L, bound, msk)
+        torch.cuda.synchronize()
+        err, near, exact = compare_candidates(q, codes, kv, ki, pv, pi,
+                                              scales)
+        worst = max(worst, err)
+        for j in bins:
+            want = (j + lead * L, j + L)
+            got = (ki[:, j], ki[:, L + j])
+            if not all(bool((g == w).all()) for g, w in zip(got, want)):
+                raise AssertionError(f"runner-up sequence ({name}), bin {j}: "
+                                     f"ids {got[0].tolist()}, "
+                                     f"{got[1].tolist()}, want {want}")
+        log(f"kernel fused_scan_int8 B=8 D={D} M={M} L={L} runner-up "
+            f"sequence v, v, 2v in bins {bins}, {name}: ok, max_abs_err "
+            f"{err:.3g}, the planted bins keep (2v or v, block-1 v), "
+            f"exact-tie slots {exact}, near-tie id slots {near} [{card}]")
+    del codes, scales
     return worst
 
 
@@ -730,17 +793,24 @@ def cold_rows(fn, reps: int = 20) -> dict:
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    rows = {e.key: e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
-    flushes = [k for k in rows if "bitwise_not" in k]
-    if not flushes:
-        raise RuntimeError("the profiler trace holds no flush rows")
+    # a trace now and then comes back with no device rows at all (about
+    # once in sixty traces on an H100): trace the window again, three
+    # times at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total}
+        flushes = [k for k in rows if "bitwise_not" in k]
+        if flushes:
+            break
+    else:
+        raise RuntimeError("three profiler traces held no flush rows")
     timed = {k: t / 1e3 / reps for k, t in rows.items() if k not in flushes}
     if not timed:
         raise RuntimeError("the profiler trace holds no device time")
@@ -1362,9 +1432,11 @@ def phase_int8(card: str, ctx: dict) -> dict:
     out["bound_by"] = ("bytes" if moved / HBM_BYTES_PER_S
                        >= flops / BF16_FLOPS_PER_S else "operations")
     log(f"kernel fused_scan_int8 B=8 D={D} Mp={Mp} L={L}: "
-        f"{kernel_ms * 1e3:.1f} us (mean of 50, CUDA events), bound "
-        f"{out['bound_ms'] * 1e3:.1f} us by {out['bound_by']} "
-        f"({moved / 1e6:.1f} MB), plain version {plain_ms:.3f} ms [{card}]")
+        f"{kernel_ms * 1e3:.1f} us (mean of 50, CUDA events; previous "
+        f"design {FUSED_SCAN_INT8_PREVIOUS_MS * 1e3:.1f}, from PERF.md, "
+        f"not re-run), bound {out['bound_ms'] * 1e3:.1f} us by "
+        f"{out['bound_by']} ({moved / 1e6:.1f} MB), plain version "
+        f"{plain_ms:.3f} ms [{card}]")
     return out
 
 
@@ -1510,7 +1582,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     rows.append({
         "name": "fused_scan_int8", "route": "cuda",
-        "source": "esrecsys_tpu_torch/csrc/fused_scan.cu",
+        "source": "esrecsys_tpu_torch/csrc/fused_scan_int8.cu",
         "replaces": "esrecsys_tpu/retrieval/fused.py:212",
         "launches": int8_res["launches"], "max_abs_err": i8_err,
         "ms": int8_res["ms"], "plain_ms": int8_res["plain_ms"],

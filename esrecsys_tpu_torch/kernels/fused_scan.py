@@ -15,8 +15,9 @@ is multiplied by the item's scale before the bound, the mask and the fold.
 
 A CPU tensor takes the plain version (:func:`fused_scan_plain`,
 :func:`fused_scan_int8_plain`); a CUDA tensor launches the kernel in
-``csrc/fused_scan.cu`` or raises. ``LAUNCHES.count`` counts the bf16
-kernel's launches, ``LAUNCHES_INT8.count`` the int8 kernel's.
+``csrc/fused_scan.cu`` (bf16) or ``csrc/fused_scan_int8.cu`` (int8) or
+raises. ``LAUNCHES.count`` counts the bf16 kernel's launches,
+``LAUNCHES_INT8.count`` the int8 kernel's.
 """
 
 from __future__ import annotations
@@ -110,21 +111,20 @@ def fused_scan_plain(q: torch.Tensor, items_packed: torch.Tensor,
     return _scan_plain(q, items_packed, num_bins, bound, mask, None)
 
 
-def typed_library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    lib = load_library("fused_scan")
+def typed_library(name: str = "fused_scan") -> ctypes.CDLL:
+    """The built kernel library ``name`` (``fused_scan``, the bf16 scan, or
+    ``fused_scan_int8``) with its C signatures declared."""
+    lib = load_library(name)
     if not getattr(lib, "_esr_typed", False):
         ptr = ctypes.c_void_p
-        lib.esr_fused_scan.argtypes = [
-            ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ptr]
-        lib.esr_fused_scan.restype = ctypes.c_int
-        lib.esr_fused_scan_int8.argtypes = [
-            ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ptr]
-        lib.esr_fused_scan_int8.restype = ctypes.c_int
+        # (device, q, items[, scales], mask, vals, ids, B, D, Mp, L, nblk,
+        #  bound, stream)
+        pointers = 6 if name == "fused_scan_int8" else 5
+        fn = getattr(lib, f"esr_{name}")
+        fn.argtypes = [ctypes.c_int, *[ptr] * pointers, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ptr]
+        fn.restype = ctypes.c_int
         lib.esr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.esr_cuda_error_string.restype = ctypes.c_char_p
         lib._esr_typed = True
@@ -161,20 +161,17 @@ def _launch(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
     ids = torch.empty((B, 2 * L), dtype=torch.int32, device=dev)
     if B == 0:
         return vals, ids
-    lib = typed_library()
+    name, counter = (("fused_scan", LAUNCHES) if scales is None
+                     else ("fused_scan_int8", LAUNCHES_INT8))
+    lib = typed_library(name)
     stream = torch.cuda.current_stream(dev).cuda_stream
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    tail = (mask.data_ptr() if mask is not None else None, vals.data_ptr(),
-            ids.data_ptr(), B, D, Mp, L, -(-bound // L), bound, stream)
-    if scales is None:
-        rc = lib.esr_fused_scan(index, q.data_ptr(), items_packed.data_ptr(),
-                                *tail)
-        name, counter = "fused_scan", LAUNCHES
-    else:
-        rc = lib.esr_fused_scan_int8(index, q.data_ptr(),
-                                     items_packed.data_ptr(),
-                                     scales.data_ptr(), *tail)
-        name, counter = "fused_scan_int8", LAUNCHES_INT8
+    head = [index, q.data_ptr(), items_packed.data_ptr()]
+    if scales is not None:
+        head.append(scales.data_ptr())
+    rc = getattr(lib, f"esr_{name}")(
+        *head, mask.data_ptr() if mask is not None else None, vals.data_ptr(),
+        ids.data_ptr(), B, D, Mp, L, -(-bound // L), bound, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({lib.esr_cuda_error_string(rc).decode()})")

@@ -224,3 +224,40 @@ def test_cuda_requested_without_cuda_raises():
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device(None)  # the default is the card
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("bins", [128, 4096])
+@pytest.mark.parametrize("case", ["better", "masked", "bounded"])
+def test_runner_up_follows_the_sequential_fold(case, bins):
+    # bins 3, 5 and L-1 hold v in blocks 0 and 1 and 2v (strictly better
+    # for every query) in block 2: the fold keeps 2v first and the block-1
+    # copy of v second; with 2v masked out or past the bound, block 0's v
+    # leads and block 1's follows
+    L = bins
+    rng = np.random.default_rng(7)
+    m = 3 * L
+    items = rng.normal(size=(m, 16)).astype(np.float32)
+    v = rng.normal(size=16).astype(np.float32)
+    q = (v + 0.1 * rng.normal(size=(4, 16))).astype(np.float32)
+    planted = [3, 5, L - 1]
+    for j in planted:
+        items[j] = items[j + L] = v
+        items[j + 2 * L] = 2 * v
+    mask, bound = None, m
+    if case == "masked":
+        mask = np.ones(m, bool)
+        mask[[j + 2 * L for j in planted]] = False
+    elif case == "bounded":
+        bound = 2 * L + 3
+    jv, ji = jfused.binned_candidates(
+        jnp.asarray(q), jfused.pack_catalog(jnp.asarray(items), L), m,
+        num_bins=L, valid_count=None if bound == m else jnp.int32(bound),
+        item_mask=None if mask is None else jnp.asarray(mask))
+    tv, ti = tkernel.fused_scan_plain(
+        torch.from_numpy(q).to(torch.bfloat16),
+        tfused.pack_catalog(torch.from_numpy(items), L), L, bound,
+        None if mask is None else torch.from_numpy(mask))
+    _assert_candidates(tv, ti, jv, ji)
+    for j in planted:
+        lead = j + 2 * L if case == "better" else j
+        assert (ti[:, j] == lead).all() and (ti[:, L + j] == j + L).all()

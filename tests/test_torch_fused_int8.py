@@ -233,3 +233,53 @@ def test_int8_non_cpu_tensors_never_take_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.fused_scan_int8(q, codes, scales, 128, 256)
     assert tkernel.LAUNCHES_INT8.count == before
+
+
+def _planted_fold(L, case, seed=7):
+    """A catalog of three blocks in which bins 3, 5 and L-1 hold one vector
+    v in blocks 0 and 1 and 2v, which every query scores strictly higher,
+    in block 2; ``case`` "masked" and "bounded" take the 2v items out by
+    the mask or by the bound. Returns (q, items, mask, bound, bins)."""
+    rng = np.random.default_rng(seed)
+    d, m = 16, 3 * L
+    items = rng.normal(size=(m, d)).astype(np.float32)
+    v = rng.normal(size=d).astype(np.float32)
+    q = (v + 0.1 * rng.normal(size=(4, d))).astype(np.float32)  # q . v > 0
+    bins = [3, 5, L - 1]
+    for j in bins:
+        items[j] = items[j + L] = v
+        items[j + 2 * L] = 2 * v
+    mask, bound = None, m
+    if case == "masked":
+        mask = np.ones(m, bool)
+        mask[[j + 2 * L for j in bins]] = False
+    elif case == "bounded":
+        bound = 2 * L + 3    # every planted 2v item lies at or past it
+    return q, items, mask, bound, bins
+
+
+@pytest.mark.parametrize("bins", [128, 4096])
+@pytest.mark.parametrize("case", ["better", "masked", "bounded"])
+def test_int8_runner_up_follows_the_sequential_fold(case, bins):
+    # v, v, then 2v in one bin: the fold keeps 2v first and the block-1
+    # copy of v second (2v pushes the block-0 copy down, and it does not
+    # beat the equal runner-up), which no merge of per-block top-2 lists
+    # by (value, lowest id) gives; without the 2v item, block 0's v leads
+    L = bins
+    q, items, mask, bound, planted = _planted_fold(L, case)
+    m = items.shape[0]
+    jcodes, jscales = jfused.pack_catalog_int8(jnp.asarray(items), L)
+    jv, ji = jfused.binned_candidates(
+        jnp.asarray(q), jcodes, m, num_bins=L, item_scales=jscales,
+        valid_count=None if bound == m else jnp.int32(bound),
+        item_mask=None if mask is None else jnp.asarray(mask))
+    codes, scales = tfused.pack_catalog_int8(torch.from_numpy(items), L)
+    tv, ti = tkernel.fused_scan_int8_plain(
+        torch.from_numpy(q).to(torch.bfloat16), codes, scales, L, bound,
+        None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=TOL,
+                               atol=TOL)
+    for j in planted:
+        lead = j + 2 * L if case == "better" else j
+        assert (ti[:, j] == lead).all() and (ti[:, L + j] == j + L).all()
