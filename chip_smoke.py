@@ -15,7 +15,10 @@ the result line:
                 scan at B=8, 13 and 64 over the full 2,265,088-column
                 catalog with planted copies of one vector, and at B=8
                 with a planted runner-up sequence (v, v, then 2v in one
-                bin) and with a bound inside a block, the
+                bin) and with a bound inside a block, scatter_add's
+                vector and generic instantiations (D 4, 6, 32, 64 and
+                128, updates one float off a 16-byte boundary, ids -1
+                and R, untouched rows bit-equal) and at a pile-up, the
                 shared-memory scatter against its plain version and
                 scatter_add at the album table, at both edges of its CTA
                 row ranges (rows hit once bit-equal) and at a pile-up
@@ -30,8 +33,10 @@ the result line:
                 playlists against all 2,262,292 tracks (the affinity
                 kernel), then exported; then the exact eval on the same
                 playlists, K steps with the kernels against K steps with
-                their plain versions from one state, and a torch.profiler
-                breakdown of one step;
+                their plain versions from one state, gather_pool and
+                scatter_add timed at the step's shapes (scatter_add also
+                with every id on one row), and a torch.profiler breakdown
+                of one step (scatter_add's device time in it);
   5. serve    - the trained artifact loaded, its catalog embedded and
                 served top-500 by the fused and the exact RetrievalService,
                 64 queries through topk and several HTTP requests through
@@ -90,6 +95,10 @@ AFFINITY_PREVIOUS_MS = 17.646
 # mma.sync warps a CTA, cp.async copies) at the served shape: PERF.md,
 # NVIDIA H100 80GB HBM3 at 700 W; logged beside the new time, not re-run
 FUSED_SCAN_INT8_PREVIOUS_MS = 0.1635
+# scatter_add's previous design (one thread and one scalar atomic per
+# element) at the step's shapes, L2 flushed, mean of the two tables: PERF.md,
+# NVIDIA H100 80GB HBM3 at 700 W; logged beside the new time, not re-run
+SCATTER_ADD_PREVIOUS_MS = 0.01561
 STEPS = 20                    # training steps of the main path
 K_STEPS = 5                   # steps compared, kernels against plain
 # kernels against plain over K steps: atomics sum duplicate rows in
@@ -146,8 +155,8 @@ def host_ms(fn, reps: int) -> float:
 def device_breakdown(fn, reps: int):
     """Profile ``reps`` calls of ``fn`` (each ending in a device sync):
     (wall ms per call, device-busy ms per call, [(op, device ms per call)]
-    for the four largest). Busy time sums the device rows of the trace
-    (kernels and copies); None when the trace holds no device time."""
+    largest first). Busy time sums the device rows of the trace (kernels
+    and copies); None when the trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -166,7 +175,7 @@ def device_breakdown(fn, reps: int):
     if not rows:
         return wall_ms, None, []
     rows.sort(key=lambda r: -r[1])
-    return wall_ms, sum(r[1] for r in rows), rows[:4]
+    return wall_ms, sum(r[1] for r in rows), rows
 
 
 def compare_top2(kv, ki, pv, pi, identical, score, near_tol):
@@ -349,8 +358,8 @@ def check_gather_scatter(card: str):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     g_err = s_err = 0.0
+    R = 100_003
     for D in (4, 32, 64):
-        R = 100_003
         table = torch.randn(R, D, generator=gen, device="cuda")
         for B, K, mean, mask_id in ((1, 1, False, -1), (777, 1, False, -1),
                                     (13, 5, True, 0), (1000, 5, False, 0)):
@@ -365,15 +374,38 @@ def check_gather_scatter(card: str):
                 raise AssertionError(f"gather_pool K=1 D={D} B={B} differs")
             torch.testing.assert_close(k, p, rtol=POOL_TOL, atol=POOL_TOL)
             g_err = max(g_err, float((k - p).abs().max()))
+    # scatter_add: the vector instantiations (D 32, 64, 128, aligned) and
+    # the generic one (D 4 and 6, and D 32 with updates one float off a
+    # 16-byte boundary); n not a multiple of any CTA's rows
+    taken = set()
+    for D in (4, 6, 32, 64, 128):
+        table = torch.randn(R, D, generator=gen, device="cuda")
         for n in (1, 777, 10_000):
             ids = torch.randint(-2, R + 2, (n,), generator=gen,
                                 device="cuda", dtype=torch.int32)
-            upd = torch.randn(n, D, generator=gen, device="cuda") * 1e-3
-            k = sa.scatter_add_cuda(table.clone(), ids, upd)
-            p = sa.scatter_add_plain(table.clone(), ids, upd)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(k, p, rtol=TOL, atol=TOL)
-            s_err = max(s_err, float((k - p).abs().max()))
+            if n > 2:  # dropped ids at both ends of the range
+                ids[n // 2], ids[-1] = -1, R
+            cases = [torch.randn(n, D, generator=gen, device="cuda") * 1e-3]
+            if D == 32:
+                buf = torch.randn(n * D + 1, generator=gen,
+                                  device="cuda") * 1e-3
+                cases.append(buf[1:].view(n, D))
+            for upd in cases:
+                k, p = table.clone(), table.clone()
+                taken.add(sa.launch_plan(n, D, k.data_ptr(),
+                                         upd.data_ptr())[0])
+                sa.scatter_add_cuda(k, ids, upd)
+                sa.scatter_add_plain(p, ids, upd)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(k, p, rtol=TOL, atol=TOL)
+                hit = torch.zeros(R, dtype=torch.bool, device="cuda")
+                hit[ids[(ids >= 0) & (ids < R)].long()] = True
+                if not torch.equal(k[~hit], table[~hit]):
+                    raise AssertionError(f"scatter_add D={D} n={n} changed "
+                                         f"rows no id touches")
+                s_err = max(s_err, float((k - p).abs().max()))
+    if taken != {0, 32, 64, 128}:
+        raise AssertionError(f"scatter_add instantiations taken: {taken}")
     # empty batches launch nothing and K=0 pools to zeros
     table = torch.randn(50, 32, generator=gen, device="cuda")
     empty = gp.gather_pool_cuda(table, torch.zeros((0, 1), dtype=torch.int32,
@@ -400,10 +432,12 @@ def check_gather_scatter(card: str):
     log(f"kernel gather_pool: D in (4, 32, 64), B in (1, 13, 777, 1000), "
         f"K in (1, 5), sum and mean, masked and clamped ids, empty batches: "
         f"ok, K=1 exactly equal, max_abs_err {g_err:.3g} [{card}]")
-    log(f"kernel scatter_add: D in (4, 32, 64), n in (1, 777, 10000) with "
-        f"dropped out-of-range ids: ok, max_abs_err {s_err:.3g}; 76,288 "
-        f"updates on one row: max_abs_err {pile:.3g} (bound {PILEUP_ATOL}) "
-        f"[{card}]")
+    log(f"kernel scatter_add: D in (4, 6, 32, 64, 128), n in (1, 777, "
+        f"10000) with dropped out-of-range ids (-1 and R among them), D=32 "
+        f"also with updates one float off a 16-byte boundary; "
+        f"instantiations {sorted(taken)} (0: generic): ok, rows no id "
+        f"touches bit-equal, max_abs_err {s_err:.3g}; 76,288 updates on "
+        f"one row: max_abs_err {pile:.3g} (bound {PILEUP_ATOL}) [{card}]")
     return g_err, s_err
 
 
@@ -963,7 +997,7 @@ def phase_train(card: str, work: str) -> dict:
         log(f"breakdown fused eval round: {wall:.1f} ms per round, device "
             f"time not measured (no device rows in the trace) [{card}]")
     else:
-        ops = ", ".join(f"{k[:40]} {v:.2f} ms" for k, v in top)
+        ops = ", ".join(f"{k[:40]} {v:.2f} ms" for k, v in top[:4])
         log(f"breakdown fused eval round (warm): {wall:.1f} ms per round "
             f"under the profiler, device busy {busy:.1f} ms (idle share "
             f"{1 - busy / wall:.2f}); largest: {ops} [{card}]")
@@ -1081,6 +1115,10 @@ def phase_train(card: str, work: str) -> dict:
             lambda: sa.scatter_add_plain(tp, ids, upd),
             lambda: tp.index_add_(0, ids, upd)) + (
                 s_bytes / HBM_BYTES_PER_S * 1e3,))
+        if name == "album":
+            # every id on one row, on the same yardstick
+            same = torch.full((n,), 7, dtype=torch.int32, device="cuda")
+            pile_ms = cold_ms(lambda: sa.scatter_add_cuda(tk, same, upd))
         log(f"path shapes, {name} table ({R} x {Dt}, {n} ids, "
             f"{distinct // (Dt * 4)} distinct), device time per call with "
             f"the L2 cache flushed before it (profiler, 20 calls): "
@@ -1093,6 +1131,12 @@ def phase_train(card: str, work: str) -> dict:
             f"{timed['scatter_add'][-1][1] * 1e3:.1f}, index_add_ "
             f"{timed['scatter_add'][-1][2] * 1e3:.1f}, bound "
             f"{timed['scatter_add'][-1][3] * 1e3:.1f}) [{card}]")
+    scatter_ms = sum(r[0] for r in timed["scatter_add"]) / 2
+    log(f"scatter_add at the step's shapes: {scatter_ms * 1e3:.2f} us, mean "
+        f"of the two tables (previous design "
+        f"{SCATTER_ADD_PREVIOUS_MS * 1e3:.2f}, from PERF.md, not re-run); "
+        f"all {alb_ids.shape[0]} ids on one row of the album table: "
+        f"{pile_ms * 1e3:.1f} us (same yardstick) [{card}]")
 
     # ---- where one train step's time goes
     step = pl.make_sparse_train_step(sk.params, cfg, corpus, seed=0)
@@ -1102,10 +1146,13 @@ def phase_train(card: str, work: str) -> dict:
         log(f"breakdown train step: {wall:.3f} ms per step, device time not "
             f"measured (no device rows in the trace) [{card}]")
     else:
-        ops = ", ".join(f"{k[:40]} {v * 1e3:.1f} us" for k, v in top)
+        ops = ", ".join(f"{k[:40]} {v * 1e3:.1f} us" for k, v in top[:4])
+        in_step = [v for k, v in top if "scatter_add_kernel" in k]
         log(f"breakdown train step: {wall:.3f} ms per step under the "
             f"profiler, device busy {busy:.3f} ms (idle share "
-            f"{1 - busy / wall:.2f}); largest: {ops} [{card}]")
+            f"{1 - busy / wall:.2f}); largest: {ops}; scatter_add "
+            f"{sum(in_step) * 1e3:.1f} us per step (its two launches) "
+            f"[{card}]")
 
     def mean(rows, i):
         return sum(r[i] for r in rows) / len(rows)
@@ -1254,7 +1301,7 @@ def phase_main(card: str, work: str):
                 f"device time not measured (no device rows in the "
                 f"trace) [{card}]")
             continue
-        ops = ", ".join(f"{k[:40]} {v * 1e3:.1f} us" for k, v in top)
+        ops = ", ".join(f"{k[:40]} {v * 1e3:.1f} us" for k, v in top[:4])
         log(f"breakdown {name} topk B=8: {wall:.3f} ms per call under "
             f"the profiler, device busy {busy:.3f} ms (idle share "
             f"{1 - busy / wall:.2f}); largest: {ops} [{card}]")
@@ -1391,7 +1438,7 @@ def phase_int8(card: str, ctx: dict) -> dict:
         else:
             split = (f"device busy {busy:.3f} ms (idle share "
                      f"{1 - busy / wall:.2f}); largest: " + ", ".join(
-                         f"{k[:40]} {v * 1e3:.1f} us" for k, v in top))
+                         f"{k[:40]} {v * 1e3:.1f} us" for k, v in top[:4]))
         log(f"serve {mode}: built in {built[mode]:.2f} s (upload, "
             f"quantize, scan copy, warm-up query); overlap@500 vs exact "
             f"{overlap:.4f} over 64 queries (floor {INT8_FLOOR}), "

@@ -5,6 +5,13 @@ The JAX side is ``scatter_add_rows(..., precision="f32", interpret=True)``
 runs it) and XLA's ``table.at[ids].add``. The port runs its plain PyTorch
 version (the CPU path of ``kernels/scatter_add.py``).
 
+At D=4 and D=6, the widths the kernel's generic instantiation takes, the
+JAX side is the Pallas kernel in interpret mode (4 divides 128) and XLA's
+``at[].add``, which ``scatter_add_rows`` takes itself when D does not
+divide 128. The launch plan (which instantiation for which width and
+pointer alignment, and the grid) is pure Python and is tested here; the
+instantiations themselves run on the card only, in ``chip_smoke.py``.
+
 Tolerances: against ``at[].add``, 1e-6 relative and absolute for random
 ids (at most a few duplicates per row, summed in another order). Against
 the Pallas kernel, 1e-5: its "f32" mode splits each update into three bf16
@@ -55,7 +62,8 @@ def _port(table, ids, upd):
                             torch.from_numpy(upd)).numpy()
 
 
-@pytest.mark.parametrize("dim,blk", [(32, 16), (64, 32), (128, 64)])
+@pytest.mark.parametrize("dim,blk", [(32, 16), (64, 32), (128, 64), (4, 16),
+                                     (6, 16)])
 def test_matches_jax_kernel_and_xla(dim, blk):
     table, ids, upd = _case(700, 900, dim, seed=dim)
     got = _port(table, ids, upd)
@@ -96,6 +104,42 @@ def test_plain_is_taken_on_cpu_without_launch():
     before = tkernel.LAUNCHES.count
     tkernel.scatter_add(torch.zeros(4, 8), torch.zeros(2, dtype=torch.int32),
                         torch.ones(2, 8))
+    assert tkernel.LAUNCHES.count == before
+
+
+# (width, table and updates pointers) -> the instantiation; 0 is generic
+@pytest.mark.parametrize("dim,table_ptr,upd_ptr,width", [
+    (32, 1 << 20, 2 << 20, 32), (64, 512, 1024, 64), (128, 16, 48, 128),
+    (32, 1 << 20, (2 << 20) + 4, 0), (64, (1 << 20) + 8, 1 << 21, 0),
+    (4, 1 << 20, 2 << 20, 0), (6, 1 << 20, 2 << 20, 0),
+    (16, 1 << 20, 2 << 20, 0), (256, 1 << 20, 2 << 20, 0)],
+    ids=["d32", "d64", "d128", "d32_updates_off_16", "d64_table_off_16",
+         "d4", "d6", "d16", "d256"])
+def test_launch_plan_picks_the_instantiation(dim, table_ptr, upd_ptr, width):
+    assert tkernel.launch_plan(777, dim, table_ptr, upd_ptr)[0] == width
+
+
+# (n, width, CTAs): 8 warps a CTA, 8 rows (vector) or floats (generic) a
+# lane; the step's 76,288 rows of 32 floats take 298 CTAs of 256 rows
+@pytest.mark.parametrize("n,dim,blocks", [
+    (76_288, 32, 298), (1, 32, 1), (256, 32, 1), (257, 32, 2),
+    (777, 64, 7), (10_000, 128, 157), (777, 4, 2), (10_000, 6, 30),
+    (1, 6, 1)])
+def test_launch_plan_grid_gives_each_warp_one_pass(n, dim, blocks):
+    width, got = tkernel.launch_plan(n, dim, 0, 0)
+    assert got == blocks
+    per_cta = (tkernel.THREADS // 32 * (32 // (dim // 4)) * tkernel.PER_LANE
+               if width else tkernel.THREADS * tkernel.PER_LANE)
+    work = n if width else n * dim
+    assert (blocks - 1) * per_cta < work <= blocks * per_cta
+
+
+def test_scatter_add_non_cpu_tensors_never_take_the_plain_version():
+    before = tkernel.LAUNCHES.count
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.scatter_add(torch.zeros(4, 8, device="meta"),
+                            torch.zeros(2, dtype=torch.int32, device="meta"),
+                            torch.ones(2, 8, device="meta"))
     assert tkernel.LAUNCHES.count == before
 
 
