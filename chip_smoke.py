@@ -37,24 +37,38 @@ the result line:
                 scatter_add timed at the step's shapes (scatter_add also
                 with every id on one row), and a torch.profiler breakdown
                 of one step (scatter_add's device time in it);
-  5. serve    - the trained artifact loaded, its catalog embedded and
+  5. harness  - the training entry point at the same full width:
+                workloads/playlist.train() from packed shards written
+                by full_scale_run.write_packed_shards (2 x 65,536
+                playlists and an eval shard of 8,192: the data set cut,
+                not its widths) to step 20, with checkpoints at 10 and 20,
+                one fused eval round and the export, through the three
+                training kernels; checkpoint 20 restored bit for bit into
+                a fresh state; a resume to step 30; a run stopped at step
+                15 by a managed PreemptionGuard, then resumed; and the
+                CLI (python -m esrecsys_tpu_torch.workloads.playlist) on
+                TFRecords that the port's ETL wrote, in a subprocess;
+                host-feed examples/s beside the device feed's, checkpoint
+                bytes and seconds, the stop-to-return seconds and the
+                TFRecord reader's records/s;
+  6. serve    - the trained artifact loaded, its catalog embedded and
                 served top-500 by the fused and the exact RetrievalService,
                 64 queries through topk and several HTTP requests through
                 serve(port=0); overlap@500 of fused against exact, timings,
                 and a torch.profiler breakdown of one served call;
-  6. int8     - the same catalog served in the four int8 modes (int8,
+  7. int8     - the same catalog served in the four int8 modes (int8,
                 int8+r8, fused int8, fused int8+r8) and one HTTP request
                 through serve(fused, quantized, rescore_int8); the device
                 quantizer against its numpy twin over the whole catalog,
                 overlap@500 of each mode against exact, B=8 latency and a
                 breakdown of each;
-  7. tool     - the port's scatter_attempt (shared-memory scatter,
+  8. tool     - the port's scatter_attempt (shared-memory scatter,
                 scatter_add, index_add_ at the album table and a half-size
                 one), then the shared-memory scatter timed at the album
                 table and with every id on one row.
 
-Each main-path phase (train, serve, int8, tool) sets the launch counts to
-0 just before it and reads them just after. A line gives the seconds each
+Each main-path phase (train, harness, serve, int8, tool) sets the launch
+counts to 0 just before it and reads them just after. A line gives the seconds each
 phase took. The second-to-last line is the kernel table as JSON, the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -101,6 +115,12 @@ FUSED_SCAN_INT8_PREVIOUS_MS = 0.1635
 SCATTER_ADD_PREVIOUS_MS = 0.01561
 STEPS = 20                    # training steps of the main path
 K_STEPS = 5                   # steps compared, kernels against plain
+# the harness phase's data set: packed shards of synthetic playlists at the
+# flagship's widths (572 bytes a playlist at C=5, M=32), cut in size only
+HARNESS_SHARDS = 2
+HARNESS_SHARD_EXAMPLES = 65_536
+HARNESS_EVAL_EXAMPLES = 8_192
+PREEMPT_AT = 15               # the step at which the harness stops a run
 # kernels against plain over K steps: atomics sum duplicate rows in
 # another order, and a last-ulp difference in a table value can flip its
 # bf16 rounding, which moves one gradient element by a bf16 ulp; tables
@@ -957,8 +977,8 @@ def phase_train(card: str, work: str) -> dict:
     state, model = res.state, res.state.params
     corpus = {k: torch.from_numpy(v).to(dev)
               for k, v in fsr.synth_corpus(run).items()}
-    batch = fsr.to_device(fsr.host_batch(np.random.default_rng(999), 2048,
-                                         5, 32, run), dev)
+    batch = pl.to_device(fsr.host_batch(np.random.default_rng(999), 2048,
+                                        5, 32, run), dev)
     aux = pl.make_corpus_embed_setup(model, cfg, corpus)(state)
     fused_topk = pl.make_eval_topk(model, cfg, corpus)
     exact_cfg = dataclasses.replace(cfg, eval_fused_bins=0)
@@ -1163,11 +1183,294 @@ def phase_train(card: str, work: str) -> dict:
         out[name] = {"launches": launches[name], "ms": mean(rows, 0),
                      "plain_ms": mean(rows, 1), "library_ms": mean(rows, 2),
                      "bound_ms": mean(rows, 3), "bound_by": "bytes"}
+    out["device_feed_examples_per_s"] = \
+        res.last_train_metrics["examples_per_sec"]
     out["fused_affinity"] = {
         "launches": launches["fused_affinity"], "max_abs_err": aff_err,
         "ms": aff_ms, "plain_ms": aff_plain_ms, "bound_ms": aff_bound,
         "bound_by": aff_by, "library_ms": None}
     return out
+
+
+def write_mpd(root: str, slices: int = 3, playlists: int = 2000,
+              seed: int = 0) -> str:
+    """Synthetic MPD slices for the CLI drill: 5,000 tracks on 1,500
+    albums and 700 artists, playlists of 12 to 60 tracks. Returns their
+    glob."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for s in range(slices):
+        out = []
+        for _ in range(playlists):
+            ids = rng.choice(5000, int(rng.integers(12, 61)), replace=False)
+            out.append({"num_tracks": len(ids), "tracks": [
+                {"track_uri": f"spotify:track:{i}",
+                 "album_uri": f"spotify:album:{i % 1500}",
+                 "artist_uri": f"spotify:artist:{i % 700}"} for i in ids]})
+        with open(os.path.join(root, f"mpd.slice.{s}.json"), "w") as f:
+            json.dump({"playlists": out}, f)
+    return os.path.join(root, "mpd.slice.*.json")
+
+
+def feed_split(step, state, feed, place, steps: int = 10):
+    """Host ms per step of a feed: (waiting for the batch, placing it on
+    the card, the step's launches, wall per step), over ``steps`` steps
+    ending in one device sync, after three warm-up steps."""
+    import torch
+
+    for _ in range(3):
+        step(state, place(next(feed)))
+    torch.cuda.synchronize()
+    split = [0.0, 0.0, 0.0]
+    t_all = time.perf_counter()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        batch = next(feed)
+        t1 = time.perf_counter()
+        batch = place(batch)
+        t2 = time.perf_counter()
+        step(state, batch)
+        t3 = time.perf_counter()
+        split = [split[0] + t1 - t0, split[1] + t2 - t1, split[2] + t3 - t2]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    return [x * 1e3 / steps for x in split] + [wall * 1e3 / steps]
+
+
+def phase_harness(card: str, device_feed_eps: float) -> dict:
+    """The training entry point on the card at the flagship's full width:
+    ``workloads/playlist.train`` from packed shards with the checkpoint,
+    eval and preemption cadences, a checkpoint round trip, a resume, a
+    preemption, and the CLI on TFRecords written by the port's ETL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.data import pipelines
+    from esrecsys_tpu_torch.data.prefetch import prefetched
+    from esrecsys_tpu_torch.etl import playlists as etl
+    from esrecsys_tpu_torch.kernels import fused_affinity as fa
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.tools import full_scale_run as fsr
+    from esrecsys_tpu_torch.train import Checkpointer, PreemptionGuard
+    from esrecsys_tpu_torch.workloads import playlist as pl
+
+    kernels = {"gather_pool": gp, "scatter_add": sa, "fused_affinity": fa}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the data: packed shards (the data set cut, not its widths)
+        run = fsr.TrainRunConfig(
+            out_dir=tmp, steps=STEPS, batch_size=2048, max_next=32,
+            eval_every=STEPS, eval_playlists=2048, eval_fused_bins=4096,
+            log_every=10, ckpt_every=10, device="cuda")
+        t0 = time.perf_counter()
+        train_pattern = fsr.write_packed_shards(
+            f"{tmp}/shards", HARNESS_SHARDS, HARNESS_SHARD_EXAMPLES, run, 5,
+            32)
+        eval_pattern = fsr.write_packed_shards(
+            f"{tmp}/eval_shards", 1, HARNESS_EVAL_EXAMPLES, run, 5, 32,
+            seed=1_000_000_099)
+        write_s = time.perf_counter() - t0
+        shard_mb = os.path.getsize(f"{tmp}/shards/packed-00000.npz") / 1e6
+        cfg = dataclasses.replace(
+            fsr.flagship_cfg(run), train_pattern=train_pattern,
+            test_pattern=eval_pattern, work_dir=f"{tmp}/run",
+            graceful_shutdown=True)
+        corpus_np = fsr.train_corpus(run)
+        log(f"harness data: {HARNESS_SHARDS} packed shards x "
+            f"{HARNESS_SHARD_EXAMPLES} playlists ({shard_mb:.1f} MB each) + "
+            f"one eval shard of {HARNESS_EVAL_EXAMPLES}, written in "
+            f"{write_s:.2f} s; the data set's size is cut, not its widths "
+            f"(C=5, M=32, the 2,262,292-track id ranges)")
+
+        # ---- the main path: train() to step 20 from the files
+        for mod in kernels.values():
+            mod.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        res = pl.train(cfg, corpus_np=corpus_np)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches = {n: mod.LAUNCHES.count for n, mod in kernels.items()}
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"train() never launched {name}")
+        ck = Checkpointer(f"{cfg.work_dir}/checkpoints")
+        ev = res.last_eval_metrics
+        loss = res.last_train_metrics.get("train_loss", float("nan"))
+        if res.steps_run != STEPS or ck.all_steps() != [10, STEPS]:
+            raise AssertionError(f"train(): {res.steps_run} steps, "
+                                 f"checkpoints {ck.all_steps()}")
+        if not ev or not all(np.isfinite(v) for v in ev.values()) \
+                or not np.isfinite(loss):
+            raise AssertionError(f"train(): loss {loss}, eval {ev}")
+        artifact = f"{cfg.work_dir}/artifacts/playlist-{STEPS:08d}.npz"
+        if not os.path.exists(artifact):
+            raise AssertionError("train() exported no artifact")
+        host_eps = res.last_train_metrics["examples_per_sec"]
+        # the window of steps 11-20 holds the cadenced save at step 10
+        window_s = 10 * cfg.batch_size / host_eps
+        host_eps_nosave = 10 * cfg.batch_size / (window_s
+                                                 - res.ckpt_save_s[0])
+        log(f"harness path: train() from packed shards, {STEPS} steps of "
+            f"the flagship + checkpoints at 10 and 20 + one fused eval "
+            f"round + export in {path_s:.1f} s; launches {launches}; loss "
+            f"of steps 11-20 {loss:.5f}; recall@500 track "
+            f"{ev['eval_track_recall']:.5f} artist "
+            f"{ev['eval_artist_recall']:.5f} [{card}]")
+        log(f"harness throughput, steps 11-20, host clock: host feed "
+            f"{host_eps:.0f} examples/s (the step-10 checkpoint save in its "
+            f"window; {host_eps_nosave:.0f} without it) against the device "
+            f"feed's {device_feed_eps:.0f} (train phase) [{card}]")
+
+        # ---- where a step's host time goes, by feed (the counts are read):
+        # the device feed, the packed shards through the prefetch thread
+        # (train()'s feed), and the same shards pulled on this thread
+        dev = torch.device("cuda")
+        corpus = {k: torch.from_numpy(v).to(dev)
+                  for k, v in corpus_np.items() if isinstance(v, np.ndarray)}
+        model, st = pl.init_state(cfg)
+        step = pl.select_train_step(model, cfg, corpus, seed=cfg.seed)
+
+        def shards():
+            return pipelines.packed_playlist_batches(
+                train_pattern, cfg.batch_size, seed=cfg.seed)
+
+        splits = {
+            "device feed": feed_split(step, st, fsr.device_feed(run, cfg, dev),
+                                      lambda b: b),
+            "host feed, prefetch 2": feed_split(
+                step, st, prefetched(shards(), 2),
+                lambda b: pl.to_device(b, dev)),
+            "host feed, no prefetch": feed_split(
+                step, st, shards(), lambda b: pl.to_device(b, dev))}
+        del model, st, step, corpus
+        log("harness feeds, host ms per step (batch wait / placing it on "
+            "the card / the step's launches / wall, 10 steps, one sync): "
+            + "; ".join(f"{k} " + " / ".join(f"{x:.3f}" for x in v)
+                        for k, v in splits.items()) + f" [{card}]")
+
+        # ---- checkpoint 20 restored into a fresh template, bit for bit
+        _, fresh = pl.init_state(dataclasses.replace(cfg, seed=cfg.seed + 1))
+        ckpt_bytes = os.path.getsize(ck.path(STEPS))
+        t0 = time.perf_counter()
+        ck.restore(fresh, step=STEPS)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want = res.state
+        pairs = [("album table", fresh.params.album_embed.embedding,
+                  want.params.album_embed.embedding),
+                 ("artist table", fresh.params.artist_embed.embedding,
+                  want.params.artist_embed.embedding)]
+        pairs += [(f"{t} momentum", fresh.opt_state[t]["momentum"],
+                   want.opt_state[t]["momentum"]) for t in ("album",
+                                                            "artist")]
+        for name, a, b in pairs:
+            if not torch.equal(a, b):
+                raise AssertionError(f"checkpoint round trip: {name} differs")
+        if fresh.step != STEPS or not isinstance(fresh.step, int):
+            raise AssertionError(f"checkpoint round trip: step {fresh.step}")
+        log(f"harness checkpoint: {ckpt_bytes} bytes (two padded tables + "
+            f"two momentum buffers); ckpt_save_s {list(res.ckpt_save_s)} "
+            f"(the saves at 10 and 20, then the final save, skipped as step "
+            f"20 is on disk); restore {restore_s:.3f} s; bit-equal round "
+            f"trip of both tables, both momentum buffers and the step "
+            f"[{card}]")
+        del fresh
+
+        # ---- resume to 30 from checkpoint 20 (the stream starts again)
+        res2 = pl.train(dataclasses.replace(cfg, resume=True, max_steps=30),
+                        corpus_np=corpus_np)
+        loss2 = res2.last_train_metrics.get("train_loss", float("nan"))
+        if res2.steps_run != 10 or res2.state.step != 30 \
+                or not np.isfinite(loss2):
+            raise AssertionError(f"resume: {res2.steps_run} steps to "
+                                 f"{res2.state.step}, loss {loss2}")
+        log(f"harness resume: 10 steps from checkpoint 20 to 30, loss of "
+            f"steps 21-30 {loss2:.5f} [{card}]")
+        del res, res2
+
+        # ---- preemption: a managed guard stopped by a hook at step 15
+        guard, stop = PreemptionGuard(), {}
+
+        def stop_at(state, step):
+            if step == PREEMPT_AT:
+                stop["t"] = time.perf_counter()
+                guard.request_stop()
+
+        pcfg = dataclasses.replace(cfg, work_dir=f"{tmp}/preempt")
+        with guard:
+            res3 = pl.train(pcfg, corpus_np=corpus_np, preemption=guard,
+                            hooks=[stop_at])
+        stop_s = time.perf_counter() - stop["t"]
+        saved = Checkpointer(f"{pcfg.work_dir}/checkpoints").all_steps()
+        if not res3.preempted or saved[-1:] != [PREEMPT_AT] \
+                or os.path.exists(f"{pcfg.work_dir}/artifacts"):
+            raise AssertionError(
+                f"preemption: preempted {res3.preempted}, checkpoints "
+                f"{saved}, artifacts "
+                f"{os.path.exists(f'{pcfg.work_dir}/artifacts')}")
+        res4 = pl.train(dataclasses.replace(pcfg, resume=True),
+                        corpus_np=corpus_np)
+        if res4.steps_run != STEPS - PREEMPT_AT or res4.state.step != STEPS:
+            raise AssertionError(f"resume after preemption: "
+                                 f"{res4.steps_run} steps")
+        log(f"harness preemption: stopped at step {PREEMPT_AT} "
+            f"(checkpoints {saved}, no artifact), {stop_s:.3f} s "
+            f"from request_stop() to train()'s return (its final save "
+            f"included); resumed to step {STEPS} [{card}]")
+        del res3, res4
+
+        # ---- the CLI on TFRecords written by the port's ETL
+        pattern = write_mpd(f"{tmp}/mpd")
+        data = f"{tmp}/training"
+        t0 = time.perf_counter()
+        etl.main(["--playlists", pattern, "--output", data])
+        etl_s = time.perf_counter() - t0
+        records = f"{data}/*.tfrecord"
+        tf_bytes = sum(os.path.getsize(os.path.join(data, f))
+                       for f in os.listdir(data) if f.endswith(".tfrecord"))
+        t0 = time.perf_counter()
+        n_rec = sum(1 for _ in pipelines.playlist_batches(
+            records, max_next=32, repeat=False))
+        read_s = time.perf_counter() - t0
+        log(f"harness tfrecords: the port's ETL wrote {n_rec} playlists "
+            f"({tf_bytes} bytes) in {etl_s:.2f} s; the reader took "
+            f"{read_s:.3f} s: {n_rec / read_s:.0f} records/s, "
+            f"{tf_bytes / read_s / 1e6:.2f} MB/s on the card's host "
+            f"[{card}]")
+        wd = f"{tmp}/cli"
+        here = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, "-m", "esrecsys_tpu_torch.workloads.playlist",
+               "--train_pattern", records, "--test_pattern", records,
+               "--all_tracks", f"{data}/all_tracks.json",
+               "--dictionaries", data, "--work_dir", wd,
+               "--album_hash_buckets", "1000", "--num_artists", "700",
+               "--num_negatives", "64", "--shared_negatives", "true",
+               "--sparse_updates", "true", "--batch_size", "64",
+               "--max_next", "32", "--max_steps", "6",
+               "--log_every_steps", "3", "--eval_every_steps", "6",
+               "--eval_steps", "64", "--checkpoint_every_steps", "3"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                             timeout=600,
+                             env={**os.environ, "PYTHONPATH": here})
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"CLI exit {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+        cli_ck = Checkpointer(f"{wd}/checkpoints").all_steps()
+        if cli_ck != [3, 6] or not os.path.exists(
+                f"{wd}/artifacts/playlist-00000006.npz"):
+            raise AssertionError(f"CLI left checkpoints {cli_ck}, artifacts "
+                                 f"{os.listdir(wd)}")
+        log(f"harness CLI: python -m esrecsys_tpu_torch.workloads.playlist "
+            f"on those TFRecords, 6 steps on the card, exit 0 in "
+            f"{cli_s:.1f} s (process start included), checkpoints "
+            f"{cli_ck}, artifact playlist-00000006.npz [{card}]")
+    return {"launches": launches}
 
 
 def http_json(url: str, body=None) -> dict:
@@ -1595,6 +1898,8 @@ def main() -> int:
         sm_err, sm_pile = timed("smem_scatter", check_smem_scatter, card)
         with tempfile.TemporaryDirectory() as work:
             train_res = timed("train", phase_train, card, work)
+            timed("harness", phase_harness, card,
+                  train_res["device_feed_examples_per_s"])
             main_res, ctx = timed("serve", phase_main, card, work)
             int8_res = timed("int8", phase_int8, card, ctx)
             del ctx

@@ -9,10 +9,21 @@ Serving (the default): the model is initialised from ``--seed``, exported
 in the shared artifact format, loaded back and served. ``--train`` first
 trains the quality flagship (feature_size 32, a shared pool of 512
 negatives, row-sparse steps with SGD momentum 0.98 at lr 0.004, bf16
-scoring) on batches drawn on the device, with a full-corpus recall@500
-eval every ``--eval_every`` steps, then exports the trained model and
-serves that artifact. The reference's host feed from packed ``.npz``
-shards, checkpoints and deploy cycles are not ported yet.
+scoring) with a full-corpus recall@500 eval every ``--eval_every`` steps,
+then exports the trained model and serves that artifact. Feeds
+(``--feed``):
+
+  * ``device`` (default): batches drawn on the device, so no batch crosses
+    the host; ``--ckpt_every N`` adds the checkpoint cadence (to
+    ``<out_dir>/checkpoints``, written on a thread with ``--ckpt_async``);
+  * ``host``: the real file path. Synthetic packed ``.npz`` shards are
+    written under ``<out_dir>/shards`` and ``<out_dir>/eval_shards``
+    (``write_packed_shards``) and ``workloads/playlist.train()`` reads them
+    through ``fit``'s prefetch, with its checkpoint and preemption
+    cadences.
+
+The reference's deploy cycles (retrain, export, hot reload into a live
+server) are not ported yet: they need the server's ``/admin/reload``.
 
 ``--quantized_serving`` serves the catalog from an int8 scan copy (the
 exact int8 scan, or the int8 fused kernel with ``--fused``) with a float32
@@ -21,7 +32,8 @@ device.
 
 Run: python -m esrecsys_tpu_torch.tools.full_scale_run --out_dir DIR \
          [--fused] [--quantized_serving [--rescore_int8]] [--device cuda] \
-         [--train --steps N --eval_fused_bins L]
+         [--train --steps N --eval_fused_bins L [--feed host|device]
+          [--ckpt_every N [--ckpt_async]]]
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from esrecsys_tpu_torch.models.playlist import (PlaylistModel,
                                                 table_rows_multiple)
 from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
 from esrecsys_tpu_torch.serving.server import RetrievalService
+from esrecsys_tpu_torch.train.checkpoint import Checkpointer
 from esrecsys_tpu_torch.train.export import (export_model, latest_artifact,
                                             load_model)
 from esrecsys_tpu_torch.train.loop import fit
@@ -89,6 +102,11 @@ class TrainRunConfig(ServingRunConfig):
     eval_playlists: int = 2048
     eval_fused_bins: int = 0
     log_every: int = 2000
+    feed: str = "device"  # "device" | "host"
+    ckpt_every: int = 0
+    ckpt_async: bool = False
+    n_shards: int = 4  # host feed: packed training shards
+    shard_examples: int = 262_144
 
 
 def mix_mod(ids: np.ndarray, salt: int, mod: int) -> np.ndarray:
@@ -131,6 +149,14 @@ def synth_corpus(cfg: ServingRunConfig) -> Dict[str, np.ndarray]:
             "artists": mix_mod(ids, 13, cfg.num_artists)}
 
 
+def train_corpus(cfg: ServingRunConfig) -> dict:
+    """:func:`synth_corpus` with the vocabulary sizes that
+    ``workloads/playlist.train()`` checks its first batch against."""
+    return {**synth_corpus(cfg), "num_tracks": cfg.num_tracks,
+            "num_albums": cfg.num_albums_raw,
+            "num_artists": cfg.num_artists}
+
+
 def flagship_cfg(run: TrainRunConfig) -> pl.PlaylistConfig:
     """The measured-best quality configuration of the reference
     (feature_size 32, SGD momentum 0.98 at lr 0.004, a shared pool of 512
@@ -144,7 +170,8 @@ def flagship_cfg(run: TrainRunConfig) -> pl.PlaylistConfig:
         max_steps=run.steps, log_every_steps=run.log_every,
         eval_every_steps=run.eval_every, eval_k=500, eval_group=8,
         eval_fused_bins=run.eval_fused_bins, corpus_block=131_072,
-        seed=run.seed)
+        work_dir=run.out_dir, eval_steps=run.eval_playlists,
+        checkpoint_every_steps=run.ckpt_every, seed=run.seed)
 
 
 def host_batch(rng: np.random.Generator, b: int, c: int, m: int,
@@ -188,26 +215,68 @@ def device_feed(run: TrainRunConfig, cfg: pl.PlaylistConfig,
         }
 
 
-def to_device(batch: Dict[str, np.ndarray], device: torch.device
-              ) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+def write_packed_shards(out_dir: str, n_shards: int, per_shard: int,
+                        run: ServingRunConfig, c: int, m: int,
+                        seed: int = 7) -> str:
+    """Synthetic ETL output: ``n_shards`` packed ``.npz`` shards
+    (``data/pipelines.pack_playlists``' format) of :func:`host_batch`
+    playlists, shard s drawn from seed ``seed + s`` (so a rerun after a
+    partial write writes the same data). Returns their glob pattern."""
+    os.makedirs(out_dir, exist_ok=True)
+    for s in range(n_shards):
+        path = f"{out_dir}/packed-{s:05d}.npz"
+        if not os.path.exists(path):
+            np.savez(path, **host_batch(np.random.default_rng(seed + s),
+                                        per_shard, c, m, run))
+    return f"{out_dir}/packed-*.npz"
+
+
+def run_train_host(run: TrainRunConfig) -> dict:
+    """The host feed: packed shards on disk -> ``workloads/playlist.train``
+    (prefetch, eval, checkpoint and preemption cadences, export)."""
+    cfg = flagship_cfg(run)
+    pattern = write_packed_shards(
+        os.path.join(run.out_dir, "shards"), run.n_shards,
+        run.shard_examples, run, cfg.context_size, cfg.max_next)
+    # the eval shard holds at least the playlists an eval round pulls;
+    # its seed lies far from the train shards' (seed + s)
+    eval_pattern = write_packed_shards(
+        os.path.join(run.out_dir, "eval_shards"), 1,
+        max(run.batch_size * 4, 1024, run.eval_playlists), run,
+        cfg.context_size, cfg.max_next, seed=1_000_000_099)
+    cfg = dataclasses.replace(cfg, train_pattern=pattern,
+                              test_pattern=eval_pattern)
+    t0 = time.perf_counter()
+    result = pl.train(cfg, corpus_np=train_corpus(run), device=run.device)
+    wall = time.perf_counter() - t0
+    return {"cfg": cfg, "result": result, "train_wall_s": wall,
+            "artifact": latest_artifact(run.out_dir, "playlist"),
+            "examples": int(result.state.step) * cfg.batch_size}
 
 
 def run_train(run: TrainRunConfig) -> dict:
-    """Train the flagship from ``run.seed`` on the device feed, with the
-    eval cadence, then export the settled model as
-    ``<out_dir>/artifacts/playlist-<step>.npz``. One eval round is one
-    batch of ``run.eval_playlists`` playlists drawn on the host with
-    seed 999."""
+    """Train the flagship from ``run.seed`` with the eval (and, with
+    ``run.ckpt_every``, checkpoint) cadence, then export the settled model
+    as ``<out_dir>/artifacts/playlist-<step>.npz``. On the device feed one
+    eval round is one batch of ``run.eval_playlists`` playlists drawn on
+    the host with seed 999; the host feed is :func:`run_train_host`."""
+    if run.feed == "host":
+        return run_train_host(run)
+    if run.feed != "device":
+        raise ValueError(f"feed must be host or device, got {run.feed!r}")
     device = resolve_device(run.device)
     cfg = flagship_cfg(run)
     corpus = {k: torch.from_numpy(v).to(device)
               for k, v in synth_corpus(run).items()}
     model, state = pl.init_state(cfg, device)
     train_step = pl.select_train_step(model, cfg, corpus, seed=cfg.seed)
-    eval_batch = to_device(host_batch(np.random.default_rng(999),
-                                      run.eval_playlists, cfg.context_size,
-                                      cfg.max_next, run), device)
+    eval_batch = pl.to_device(host_batch(np.random.default_rng(999),
+                                         run.eval_playlists,
+                                         cfg.context_size, cfg.max_next,
+                                         run), device)
+    ckpt = (Checkpointer(os.path.join(run.out_dir, "checkpoints"),
+                         async_save=run.ckpt_async)
+            if run.ckpt_every else None)
     t0 = time.perf_counter()
     result = fit(
         state, train_step, device_feed(run, cfg, device),
@@ -216,19 +285,17 @@ def run_train(run: TrainRunConfig) -> dict:
         eval_setup_fn=pl.make_corpus_embed_setup(model, cfg, corpus),
         eval_iter_fn=lambda: itertools.repeat(eval_batch),
         eval_every=cfg.eval_every_steps, eval_steps=1,
-        log_every=cfg.log_every_steps, examples_per_step=cfg.batch_size)
+        log_every=cfg.log_every_steps, examples_per_step=cfg.batch_size,
+        checkpointer=ckpt, checkpoint_every=cfg.checkpoint_every_steps,
+        # the feed draws on the card: it must stay on this thread
+        prefetch=0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     t_exp = time.perf_counter()
     artifact = export_model(
         run.out_dir, "playlist", pl.settled_params(result.state, cfg),
-        step=int(result.state.step),
-        metadata={"feature_size": cfg.feature_size,
-                  "album_hash_buckets": cfg.album_hash_buckets,
-                  "num_artists": cfg.num_artists,
-                  "valid_rows": {"album_embed": cfg.album_hash_buckets,
-                                 "artist_embed": cfg.num_artists}})
+        step=int(result.state.step), metadata=pl.export_metadata(cfg))
     return {"cfg": cfg, "result": result, "train_wall_s": wall,
             "export_s": time.perf_counter() - t_exp, "artifact": artifact,
             "examples": int(result.state.step) * cfg.batch_size}
@@ -236,24 +303,28 @@ def run_train(run: TrainRunConfig) -> dict:
 
 def train_report(run: TrainRunConfig, tr: dict) -> dict:
     """The run's numbers, as the reference reports them: sustained
-    examples/s with the eval cadence, and the steady rate without the
-    first step and the eval rounds."""
+    examples/s with the eval and checkpoint cadences, and the steady rate
+    without the first step, the eval rounds and the checkpoint saves. The
+    host feed's export runs inside ``train()``, in its wall time."""
     res = tr["result"]
-    overhead = res.first_dispatch_s + sum(res.eval_round_s)
+    overhead = (res.first_dispatch_s + sum(res.eval_round_s)
+                + sum(res.ckpt_save_s))
     steady_wall = max(tr["train_wall_s"] - overhead, 1e-9)
     return {
-        "feed": "device",
+        "feed": run.feed,
         "steps": int(res.state.step),
         "examples": tr["examples"],
         "train_wall_s": tr["train_wall_s"],
         "sustained_examples_per_s": tr["examples"] / tr["train_wall_s"],
         "first_dispatch_s": res.first_dispatch_s,
         "eval_round_s": list(res.eval_round_s),
+        "ckpt_save_s": list(res.ckpt_save_s),
         "steady_examples_per_s": tr["examples"] / steady_wall,
         "eval_rounds": max(run.steps // run.eval_every, 0),
         "last_train": res.last_train_metrics,
         "last_eval": res.last_eval_metrics,
-        "export_s": tr["export_s"],
+        "ckpt_saves": len(res.ckpt_save_s),
+        "export_s": tr.get("export_s"),
     }
 
 
@@ -363,6 +434,17 @@ def main(argv=None):
                         "affinity kernel at this bin count (approximate: "
                         "expected lost items C(k,3)/L^2), then rescore "
                         "them exactly")
+    p.add_argument("--feed", default="device", choices=["device", "host"],
+                   help="device: batches drawn on the card; host: packed "
+                        "npz shards written to disk, read by "
+                        "workloads/playlist.train()")
+    p.add_argument("--n_shards", type=int, default=4)
+    p.add_argument("--shard_examples", type=int, default=262_144)
+    p.add_argument("--ckpt_every", type=int, default=0,
+                   help="checkpoint cadence in steps (0: none; the host "
+                        "feed's train() still saves its last step)")
+    p.add_argument("--ckpt_async", action="store_true",
+                   help="write the device feed's checkpoints on a thread")
     args = p.parse_args(argv)
     cfg = TrainRunConfig(
         out_dir=args.out_dir, num_tracks=args.corpus_size,
@@ -372,7 +454,9 @@ def main(argv=None):
         rescore_int8=args.rescore_int8, device=args.device, steps=args.steps,
         batch_size=args.batch_size, max_next=args.max_next,
         eval_every=args.eval_every, eval_playlists=args.eval_playlists,
-        eval_fused_bins=args.eval_fused_bins)
+        eval_fused_bins=args.eval_fused_bins, feed=args.feed,
+        n_shards=args.n_shards, shard_examples=args.shard_examples,
+        ckpt_every=args.ckpt_every, ckpt_async=args.ckpt_async)
     os.makedirs(cfg.out_dir, exist_ok=True)
     if args.train:
         out = train_report(cfg, run_train(cfg))

@@ -54,10 +54,12 @@ def export_model(
     params: Union[nn.Module, Mapping[str, Any]],
     *,
     step: int,
+    tracker: Optional[Any] = None,
     batch_stats: Optional[Mapping[str, Any]] = None,
     metadata: Optional[Dict[str, Any]] = None,
 ) -> str:
-    """Write ``<work_dir>/artifacts/<name>-<step>.npz`` and return its path.
+    """Write ``<work_dir>/artifacts/<name>-<step>.npz``, register it with
+    ``tracker`` if one is given, and return its path.
 
     ``params``: an ``nn.Module`` (its state dict is written under the
     reference's nested names) or a nested ``{module: {param: array}}``
@@ -77,6 +79,8 @@ def export_model(
     with open(tmp, "wb") as f:
         np.savez(f, **payload)
     os.replace(tmp, path)  # atomic publish
+    if tracker is not None:
+        tracker.log_artifact(path, name=f"{name}-{int(step)}", kind="model")
     return path
 
 

@@ -1,30 +1,49 @@
-"""Playlist next-track workload: loss, train steps and full-corpus eval
-(counterpart of ``esrecsys_tpu/workloads/playlist.py``).
+"""Playlist next-track workload: loss, train steps, full-corpus eval and
+the training entry point (counterpart of
+``esrecsys_tpu/workloads/playlist.py``).
 
 Ported: ``PlaylistConfig`` (the fields below), ``playlist_loss``, the dense
 autograd step with SGD momentum, the row-sparse step at momentum 0 and
-with the dense momentum carrier, ``init_state``, and the exact and fused
-recall@k eval over the full corpus. The row-sparse step gathers its
+with the dense momentum carrier, ``init_state``, the exact and fused
+recall@k eval over the full corpus, and ``train()`` with its CLI: TFRecord
+or packed ``.npz`` files in, the eval, checkpoint and preemption cadences,
+resume, and the exported artifact out. The row-sparse step gathers its
 touched rows through the row-gather kernel, differentiates the loss with
 respect to those rows, and scatter-adds the row gradients through the
 scatter-add kernel; the fused eval scans the corpus through the
 playlist-affinity kernel.
 
 Not ported yet: the lazy momentum carrier (configurations that resolve to
-it raise), the TPU's packed table layouts (a TPU layout trick, never
-ported), the sharded eval, and ``train()`` with its file pipelines and
-checkpoints.
+it raise, and so does restoring its checkpoints), the TPU's packed table
+layouts (a TPU layout trick, never ported), ``steps_per_call``, and
+everything multi-device (the sharded eval, ``n_model_shards > 1``,
+per-process file slices).
+
+Run: python -m esrecsys_tpu_torch.workloads.playlist \
+         --train_pattern 'data/training/*.tfrecord' \
+         --test_pattern 'data/test/*.tfrecord' \
+         --all_tracks data/training/all_tracks.json \
+         --dictionaries data/training --work_dir runs/playlist \
+         [--resume true] [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Dict, Optional, Tuple
+import logging
+import os
+import tempfile
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from esrecsys_tpu_torch.core import config as config_lib
 from esrecsys_tpu_torch.core.device import pad_to_multiple, resolve_device
+from esrecsys_tpu_torch.core.tracking import make_tracker
+from esrecsys_tpu_torch.data import pipelines
 from esrecsys_tpu_torch.models.playlist import (PlaylistModel,
                                                 affinity_scores,
                                                 batched_isin,
@@ -42,7 +61,13 @@ from esrecsys_tpu_torch.retrieval.mips import (NEG_INF, chunked_grouped_topk,
                                                chunked_topk, pad_topk,
                                                require_full_f32,
                                                topk_lower_index_first)
+from esrecsys_tpu_torch.train.checkpoint import Checkpointer
+from esrecsys_tpu_torch.train.export import export_model
+from esrecsys_tpu_torch.train.loop import FitResult, fit
+from esrecsys_tpu_torch.train.preemption import log_if_preempted
 from esrecsys_tpu_torch.train.state import TrainState
+
+log = logging.getLogger(__name__)
 
 POS_INF = float("inf")
 STREAM_NEGATIVES = 1  # the reference's core/prng stream tag
@@ -52,8 +77,15 @@ Batch = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class PlaylistConfig:
-    """The reference's fields that this slice uses, with its defaults."""
+    """The reference's fields that the port uses, with its defaults
+    (``work_dir`` defaults to ``playlist`` under the temporary
+    directory)."""
 
+    train_pattern: str = ""  # *.tfrecord files, or packed *.npz shards
+    test_pattern: str = ""
+    all_tracks: str = ""  # all_tracks.json of the ETL
+    dictionaries: str = ""  # directory of the ETL's uri dictionaries
+    work_dir: str = os.path.join(tempfile.gettempdir(), "playlist")
     feature_size: int = 32
     album_hash_buckets: int = 100_000
     num_artists: int = 295_861
@@ -72,6 +104,7 @@ class PlaylistConfig:
     max_steps: int = 2_000_000
     log_every_steps: int = 1000
     eval_every_steps: int = 10_000
+    eval_steps: int = 1000  # eval playlists a round (whole batches, >= 1)
     eval_k: int = 500
     eval_group: int = 8  # group-max prefilter width of the exact eval;
     # 0 = plain chunked_topk
@@ -81,8 +114,14 @@ class PlaylistConfig:
     eval_fused_bins: int = 0  # > 0: the eval selects candidates with the
     # fused affinity kernel at this bin count, then rescores them exactly
     compute_dtype: str = "float32"  # "bfloat16": bf16 scoring inputs
+    checkpoint_every_steps: int = 100_000
     corpus_block: int = 131_072
     seed: int = 0
+    n_model_shards: int = 1  # > 1 (the sharded tables and eval) raises
+    resume: bool = False
+    # SIGTERM -> a stop at the next step, a checkpoint and a clean exit;
+    # relaunch with resume=True (train/preemption.py)
+    graceful_shutdown: bool = True
 
 
 # ------------------------------------------------------------------ loss
@@ -498,3 +537,175 @@ def _hit_metrics(batch: Batch, top_vals: torch.Tensor, top_idx: torch.Tensor,
     out.update(ranking_metrics(hit_artists, denom, k, "artist", ndcg=False))
     return out
 
+
+
+# ------------------------------------------------------------------ wiring
+
+def export_metadata(cfg: PlaylistConfig) -> Dict[str, object]:
+    """The artifact metadata of a playlist model, as the reference writes
+    it: the widths, and the logical (unpadded) row counts of the tables
+    (rows past them are alignment padding that consumers slice off)."""
+    return {"feature_size": cfg.feature_size,
+            "album_hash_buckets": cfg.album_hash_buckets,
+            "num_artists": cfg.num_artists,
+            "valid_rows": {"album_embed": cfg.album_hash_buckets,
+                           "artist_embed": cfg.num_artists}}
+
+
+def restore_adapt_carrier(ckpt: Checkpointer, state_template: TrainState,
+                          cfg: PlaylistConfig) -> TrainState:
+    """Restore the latest checkpoint into ``state_template``.
+
+    The reference also converts between its two momentum carriers here
+    (a lazy checkpoint settled into the dense carrier, a dense one given
+    ``last_step`` rows). The port has the dense carrier only, so this is
+    the plain restore: a dense checkpoint restores as it is, and a lazy
+    one raises ``NotImplementedError`` until the lazy carrier is ported.
+    """
+    _require_ported_carrier(cfg)
+    return ckpt.restore(state_template)
+
+
+def validate_batch(batch, num_tracks: int, num_albums: int,
+                   num_artists: int) -> None:
+    """Input range checks of a batch's context ids (the reference runs
+    them on the first batch); out-of-range ids raise ``ValueError``."""
+    for key, bound in (("track_context", num_tracks),
+                       ("album_context", num_albums),
+                       ("artist_context", num_artists)):
+        top = int(np.max(batch[key]))
+        if top >= bound:
+            raise ValueError(f"{key} holds id {top} >= {bound}")
+
+
+def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Batch:
+    """A numpy batch on ``device``: on a card through pinned host memory
+    with ``non_blocking`` copies, so the copy overlaps the host's next
+    work."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        out[k] = t
+    return out
+
+
+def train(cfg: PlaylistConfig, tracker=None, corpus_np=None, device=None,
+          *, preemption=None,
+          hooks: Sequence[Callable[[TrainState, int], None]] = ()
+          ) -> FitResult:
+    """Train from ``cfg.train_pattern`` to the absolute step
+    ``cfg.max_steps``, then export ``<work_dir>/artifacts/playlist-<step>
+    .npz``.
+
+    A pattern ending in ``.npz`` reads packed shards
+    (``data/pipelines.packed_playlist_batches``, shuffled), any other
+    TFRecords (``playlist_batches`` with a 1,000-example shuffle buffer).
+    One batch is pulled for the shape and id-range checks and dropped.
+    Eval rounds run ``max(1, eval_steps // batch_size)`` batches of
+    ``test_pattern``; checkpoints go to ``<work_dir>/checkpoints`` every
+    ``checkpoint_every_steps`` and at the end. With ``resume`` the run
+    continues from the latest checkpoint, and its input stream starts
+    again from its seed, as the reference's does. ``corpus_np`` (tracks,
+    albums, artists and the three ``num_*`` counts) defaults to
+    ``load_track_corpus`` of ``all_tracks`` and ``dictionaries``.
+    ``preemption`` defaults to ``cfg.graceful_shutdown``; pass a managed
+    ``PreemptionGuard`` to stop the run from outside. ``hooks`` run as
+    ``hook(state, step)`` after every step. A preempted run skips the
+    export. Runs on ``device`` (default: the card).
+    """
+    if cfg.n_model_shards > 1:
+        raise NotImplementedError(
+            "n_model_shards > 1 (sharded tables and eval) is not ported yet "
+            "(ROADMAP queue 1 item 8, multi-device)")
+    device = resolve_device(device)
+    if corpus_np is None:
+        corpus_np = pipelines.load_track_corpus(
+            cfg.all_tracks,
+            f"{cfg.dictionaries}/track_uri_dict.json",
+            f"{cfg.dictionaries}/album_uri_dict.json",
+            f"{cfg.dictionaries}/artist_uri_dict.json")
+    corpus = {k: torch.from_numpy(v).to(device)
+              for k, v in corpus_np.items() if isinstance(v, np.ndarray)}
+    model, state = init_state(cfg, device)
+
+    ckpt = Checkpointer(f"{cfg.work_dir}/checkpoints")
+    if cfg.resume and ckpt.latest_step() is not None:
+        state = restore_adapt_carrier(ckpt, state, cfg)
+        log.info("resumed from step %d", state.step)
+
+    own_tracker = tracker is None
+    if own_tracker:
+        tracker = make_tracker(run_dir=cfg.work_dir,
+                               config=config_lib.to_dict(cfg))
+
+    def make_iter(pattern, shuf):
+        if pattern.endswith(".npz"):  # ETL-packed shards
+            return pipelines.packed_playlist_batches(
+                pattern, batch_size=cfg.batch_size, shuffle=shuf > 0,
+                seed=cfg.seed)
+        return pipelines.playlist_batches(
+            pattern, context_size=cfg.context_size, max_next=cfg.max_next,
+            batch_size=cfg.batch_size, shuffle_buffer=shuf, seed=cfg.seed)
+
+    train_iter = make_iter(cfg.train_pattern, 1000)
+    first = next(train_iter)
+    if first["next_track"].shape != (cfg.batch_size, cfg.max_next):
+        raise ValueError(
+            f"batch shape {first['next_track'].shape} != config "
+            f"({cfg.batch_size}, {cfg.max_next}): packed shards carry their "
+            "own max_next (pack_max_next at ETL time); set max_next to match")
+    validate_batch(first, corpus_np["num_tracks"], corpus_np["num_albums"],
+                   corpus_np["num_artists"])
+
+    step_fn = select_train_step(model, cfg, corpus, seed=cfg.seed)
+    eval_fn = make_eval_step(model, cfg, corpus)
+    try:
+        result = fit(
+            state,
+            lambda st, batch: step_fn(st, to_device(batch, device)),
+            train_iter,
+            num_steps=cfg.max_steps,
+            eval_step=lambda st, batch, aux: eval_fn(
+                st, to_device(batch, device), aux),
+            eval_setup_fn=make_corpus_embed_setup(model, cfg, corpus),
+            eval_iter_fn=lambda: make_iter(cfg.test_pattern, 0),
+            eval_every=cfg.eval_every_steps,
+            eval_steps=max(1, cfg.eval_steps // cfg.batch_size),
+            log_every=cfg.log_every_steps,
+            tracker=tracker,
+            checkpointer=ckpt,
+            checkpoint_every=cfg.checkpoint_every_steps,
+            hooks=hooks,
+            hook_every=1,
+            examples_per_step=cfg.batch_size,
+            preemption=(cfg.graceful_shutdown if preemption is None
+                        else preemption),
+        )
+        if not log_if_preempted(result, log):
+            export_model(cfg.work_dir, "playlist",
+                         settled_params(result.state, cfg),
+                         step=result.state.step, tracker=tracker,
+                         metadata=export_metadata(cfg))
+        return result
+    finally:
+        if own_tracker:
+            tracker.finish()
+
+
+def main(argv=None) -> FitResult:
+    """``python -m esrecsys_tpu_torch.workloads.playlist --field value
+    ... [--device cpu]``: every ``PlaylistConfig`` field is a flag."""
+    logging.basicConfig(level=logging.INFO, force=True)
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--device", default="cuda")
+    args, _ = p.parse_known_args(argv)
+    cfg = config_lib.from_cli(PlaylistConfig, argv)
+    return train(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

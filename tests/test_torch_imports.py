@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no file of ``esrecsys_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, its libraries, or the JAX package."""
+``chip_smoke.py``) imports JAX, its libraries, TensorFlow, protobuf, or
+the JAX package."""
 
 import ast
 import os
@@ -11,9 +12,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "esrecsys_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "esrecsys_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "esrecsys_tpu",
+             "tensorflow", "google.protobuf")
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
                  for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
 
 
 def _imported_modules(path: Path):
@@ -40,14 +46,17 @@ def test_port_has_the_slice_modules():
                 "kernels/fused_affinity.py", "csrc/fused_affinity.cu",
                 "train/state.py", "train/loop.py", "workloads/playlist.py",
                 "kernels/smem_scatter.py", "csrc/smem_scatter.cu",
-                "tools/scatter_attempt.py"):
+                "tools/scatter_attempt.py", "core/config.py",
+                "core/tracking.py", "core/profiling.py", "data/vocab.py",
+                "data/tfrecord.py", "data/pipelines.py", "data/prefetch.py",
+                "train/checkpoint.py", "train/preemption.py",
+                "etl/playlists.py"):
         assert (PORT / rel).is_file(), rel
 
 
 @pytest.mark.parametrize("rel", SOURCES)
 def test_no_jax_or_reference_import(rel):
-    bad = [m for m in _imported_modules(ROOT / rel)
-           if m.split(".")[0] in FORBIDDEN]
+    bad = [m for m in _imported_modules(ROOT / rel) if _forbidden(m)]
     assert not bad, f"{rel} imports {bad}"
 
 
@@ -60,9 +69,12 @@ def test_import_leaves_jax_unloaded():
             "esrecsys_tpu_torch.ops.scatter, "
             "esrecsys_tpu_torch.kernels.fused_affinity, "
             "esrecsys_tpu_torch.kernels.smem_scatter, "
-            "esrecsys_tpu_torch.tools.scatter_attempt; "
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN!r}))")
+            "esrecsys_tpu_torch.tools.scatter_attempt, "
+            "esrecsys_tpu_torch.etl.playlists, "
+            "esrecsys_tpu_torch.data.pipelines, "
+            "esrecsys_tpu_torch.train.checkpoint; "
+            "print(sorted(m for m in sys.modules if any(m == f or "
+            f"m.startswith(f + '.') for f in {FORBIDDEN!r})))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
