@@ -65,9 +65,25 @@ the result line:
   8. tool     - the port's scatter_attempt (shared-memory scatter,
                 scatter_add, index_add_ at the album table and a half-size
                 one), then the shared-memory scatter timed at the album
-                table and with every id on one row.
+                table and with every id on one row;
+  9. lazy     - the lazy momentum carrier at the flagship's full width:
+                20 float32 steps under the lazy and the dense carrier from
+                one init on the same batches and negatives, the lazy
+                tables flushed (settled_params) against the dense ones;
+                the flagship (bf16) trained 20 steps under the lazy
+                carrier through full_scale_run with one fused recall@500
+                eval round and the export (the settled model), fused
+                against exact eval, a bit-exact checkpoint round trip and
+                both carrier adaptations; the dense against the lazy step
+                on the host clock with the device's busy share, at the
+                flagship and at 10,000,000 album buckets (where "auto" is
+                lazy); a short flagship_quality_bench; then, the earlier
+                tensors freed, gather_pool and scatter_add against their
+                plain versions on a 100M x 32 float32 table (row offsets
+                past 2^31 elements) and scale_table at that width with
+                momentum 0.98.
 
-Each main-path phase (train, harness, serve, int8, tool) sets the launch
+Each main-path phase (train, harness, serve, int8, tool, lazy) sets the launch
 counts to 0 just before it and reads them just after. A line gives the seconds each
 phase took. The second-to-last line is the kernel table as JSON, the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -130,18 +146,21 @@ PREEMPT_AT = 15               # the step at which the harness stops a run
 TRAIN_TABLE_ATOL = 1e-5
 TRAIN_MOMENTUM_ATOL = 2e-4
 TRAIN_DIFF_SHARE = 1e-4
+# the lazy carrier plus a flush against the dense carrier, 20 float32 steps
+# from one init: the same trajectory up to float32 rounding (duplicate-row
+# gradients summed in another order; the catch-up's closed form for
+# mu + ... + mu^k against k multiplications); tables start near 0.18
+LAZY_LOSS_RTOL = 1e-5
+LAZY_TABLE_ATOL = 1e-5
+LAZY_MOMENTUM_ATOL = 1e-4
+CARRIER_STEPS = 30            # steps timed per carrier and turn
+BIG_BUCKETS = 10_000_000      # album buckets where "auto" is lazy (1.28 GB)
+SCALE_ROWS = 100_000_000      # scale_table's full width: 100M x 32 float32
+SCALE_IDS = 262_144
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1185,6 +1204,7 @@ def phase_train(card: str, work: str) -> dict:
                      "bound_ms": mean(rows, 3), "bound_by": "bytes"}
     out["device_feed_examples_per_s"] = \
         res.last_train_metrics["examples_per_sec"]
+    out["eval_track_recall"] = ev["eval_track_recall"]
     out["fused_affinity"] = {
         "launches": launches["fused_affinity"], "max_abs_err": aff_err,
         "ms": aff_ms, "plain_ms": aff_plain_ms, "bound_ms": aff_bound,
@@ -1855,6 +1875,364 @@ def phase_tool(card: str) -> dict:
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
+def bit_equal_states(a, b) -> list:
+    """Names of the tensors (params, optimizer state) where two sparse
+    train states differ in any bit, plus ``step`` if their steps do."""
+    import torch
+
+    bad = [] if a.step == b.step else ["step"]
+    for name, t in a.params.state_dict().items():
+        if not torch.equal(t, b.params.state_dict()[name]):
+            bad.append(name)
+    for table, d in a.opt_state.items():
+        if set(d) != set(b.opt_state[table]):
+            bad.append(f"{table} keys")
+            continue
+        bad += [f"{table}/{k}" for k, v in d.items()
+                if not torch.equal(v, b.opt_state[table][k])]
+    return bad
+
+
+def carrier_cost(card: str, work: str, buckets: int) -> dict:
+    """The dense-carrier step against the lazy one at ``buckets`` album
+    buckets (the flagship otherwise, bf16 scoring as users run it), in
+    turns dense, lazy, lazy, dense on one batch: ms per step on the host
+    clock over CARRIER_STEPS steps ending in a sync, and the device's busy
+    share of a step from torch.profiler."""
+    import torch
+
+    from esrecsys_tpu_torch.tools import full_scale_run as fsr
+    from esrecsys_tpu_torch.workloads import playlist as pl
+
+    dev = torch.device("cuda")
+    out = {"dense": [], "lazy": []}
+    for carrier in ("dense", "lazy", "lazy", "dense"):
+        run = fsr.TrainRunConfig(out_dir=work, batch_size=2048, max_next=32,
+                                 album_buckets=buckets, device="cuda",
+                                 momentum_carrier=carrier)
+        cfg = fsr.flagship_cfg(run)
+        if pl.use_lazy_momentum(cfg) != (carrier == "lazy"):
+            raise AssertionError(f"{carrier} carrier did not resolve")
+        corpus = {k: torch.from_numpy(v).to(dev)
+                  for k, v in fsr.synth_corpus(run).items()}
+        model, state = pl.init_state(cfg, dev)
+        step = pl.make_sparse_train_step(model, cfg, corpus, seed=0)
+        batch = next(fsr.device_feed(run, cfg, dev))
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CARRIER_STEPS):
+            _, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / CARRIER_STEPS
+        if not torch.isfinite(m["loss"]):
+            raise AssertionError(f"{carrier} carrier: loss {m['loss']}")
+        wall, busy, top = device_breakdown(
+            lambda: (step(state, batch), torch.cuda.synchronize()), 5)
+        out[carrier].append((ms, wall, busy, top))
+        del model, state, step, corpus
+        torch.cuda.empty_cache()
+    for carrier, rows in out.items():
+        ms = [r[0] for r in rows]
+        busy = [r[2] for r in rows]
+        busy_txt = ("device time not measured" if None in busy else
+                    "device busy " + " / ".join(f"{b:.3f}" for b in busy)
+                    + " ms (idle share " + " / ".join(
+                        f"{1 - b / r[1]:.2f}" for b, r in zip(busy, rows))
+                    + ")")
+        top = rows[0][3]
+        ops = ", ".join(f"{k[:40]} {v * 1e3:.1f} us" for k, v in top[:3])
+        log(f"carrier cost, {buckets} album buckets (album table "
+            f"{buckets * 32 * 4 / 1e9:.3f} GB), {carrier} carrier: "
+            + " / ".join(f"{x:.3f}" for x in ms)
+            + f" ms per step ({2048 / (min(ms) / 1e3):.0f} examples/s at "
+            f"the faster; host clock, {CARRIER_STEPS} steps, one sync); "
+            f"under the profiler {busy_txt}; largest: {ops} [{card}]")
+    return {c: [r[0] for r in rows] for c, rows in out.items()}
+
+
+def check_big_table(card: str, rows: int, dim: int, n: int) -> float:
+    """gather_pool and scatter_add against their plain versions on a
+    (rows, dim) float32 table, with ids above 2^26 so that row offsets
+    pass 2^31 elements; only the touched rows are compared (and their
+    untouched neighbours), so nothing table-sized is copied. Returns the
+    largest difference."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.tools import scale_table as st
+
+    dev = torch.device("cuda")
+    cfg = st.ScaleConfig(rows=rows, dim=dim, ids_per_step=n, device="cuda")
+    table, _ = st.init(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(0, rows, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    # rows at both sides of offset 2^31 and at the table's end, repeated
+    high = torch.tensor([rows - 1, rows - 1, (1 << 31) // dim - 1,
+                         (1 << 31) // dim, (1 << 31) // dim + 1, rows - 2,
+                         rows - 1],
+                        dtype=torch.int32, device=dev)
+    ids[:high.numel()] = high
+    if int(ids.max()) * dim < 1 << 31:
+        raise AssertionError("no row offset past 2^31 elements")
+    ids2 = ids[:, None].contiguous()
+    k = gp.gather_pool_cuda(table, ids2, False, -1)
+    p = gp.gather_pool_plain(table, ids2, False, -1)
+    if not torch.equal(k, p):
+        raise AssertionError(f"gather_pool differs on the {rows}-row table: "
+                             f"{float((k - p).abs().max())}")
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    nb = (uniq + 1).clamp(max=rows - 1)
+    nb = nb[~torch.isin(nb, uniq)].long()
+    before, nb_before = table[uniq.long()], table[nb]
+    upd = torch.randn((n, dim), generator=gen, device=dev) * 1e-3
+    sa.scatter_add_cuda(table, ids, upd)
+    want = sa.scatter_add_plain(before.clone(), inv.to(torch.int32), upd)
+    got = table[uniq.long()]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    if not torch.equal(table[nb], nb_before):
+        raise AssertionError("scatter_add wrote an untouched row")
+    log(f"kernel gather_pool and scatter_add on a {rows} x {dim} float32 "
+        f"table ({rows * dim / 2 ** 31:.2f} x 2^31 elements), {n} ids up to "
+        f"{int(ids.max())} (offsets to {int(ids.max()) * dim} elements): "
+        f"gather equal, scatter max_abs_err {err:.3g} over "
+        f"{uniq.numel()} touched rows, {nb.numel()} untouched neighbours "
+        f"bit-equal [{card}]")
+    return err
+
+
+def phase_lazy(card: str, dense: dict) -> dict:
+    """The lazy momentum carrier at full width: lazy plus flush against
+    the dense carrier (float32), the flagship under the lazy carrier
+    through train, a fused eval round and export, its checkpoints and both
+    adaptations, scale_table at 100M rows, the carrier's cost, and the
+    flagship bench tool."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_affinity as fa
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.tools import flagship_quality_bench as fqb
+    from esrecsys_tpu_torch.tools import full_scale_run as fsr
+    from esrecsys_tpu_torch.tools import scale_table as st
+    from esrecsys_tpu_torch.train import Checkpointer
+    from esrecsys_tpu_torch.train.export import load_model
+    from esrecsys_tpu_torch.workloads import playlist as pl
+
+    dev = torch.device("cuda")
+    kernels = {"gather_pool": gp, "scatter_add": sa, "fused_affinity": fa}
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        run = fsr.TrainRunConfig(
+            out_dir=work, steps=STEPS, batch_size=2048, max_next=32,
+            eval_every=STEPS, eval_playlists=2048, eval_fused_bins=4096,
+            log_every=10, fused=True, device="cuda",
+            momentum_carrier="lazy")
+        corpus = {k: torch.from_numpy(v).to(dev)
+                  for k, v in fsr.synth_corpus(run).items()}
+
+        # ---- 1. lazy plus flush against the dense carrier, float32
+        cfg_l = dataclasses.replace(fsr.flagship_cfg(run),
+                                    compute_dtype="float32")
+        cfg_d = dataclasses.replace(cfg_l, momentum_carrier="dense")
+        feed = fsr.device_feed(run, cfg_l, dev)
+        batches = [next(feed) for _ in range(STEPS)]
+        neg_gen = torch.Generator(device=dev).manual_seed(6)
+        negs = [torch.randint(0, run.num_tracks, (512,), generator=neg_gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(STEPS)]
+        runs = {}
+        for name, cfg in (("lazy", cfg_l), ("dense", cfg_d)):
+            model, state = pl.init_state(cfg, dev)
+            step = pl.make_sparse_train_step(model, cfg, corpus, seed=0)
+            losses = [float(step(state, b, neg_ids=n)[1]["loss"])
+                      for b, n in zip(batches, negs)]
+            runs[name] = (state, losses)
+        (sl, ll), (sd, ld) = runs["lazy"], runs["dense"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ll, ld))
+        settled = pl.settled_params(sl, cfg_l)
+        worst = {}
+        for t in ("album", "artist"):
+            a = getattr(settled, f"{t}_embed").embedding
+            b = getattr(sd.params, f"{t}_embed").embedding.detach()
+            worst[f"{t} table"] = float((a - b).abs().max())
+        pl.settle_momentum_state(sl, cfg_l)
+        for t in ("album", "artist"):
+            if not torch.equal(getattr(sl.params, f"{t}_embed").embedding,
+                               getattr(settled, f"{t}_embed").embedding):
+                raise AssertionError(f"settle and flush differ ({t})")
+            worst[f"{t} momentum"] = float(
+                (sl.opt_state[t]["momentum"]
+                 - sd.opt_state[t]["momentum"]).abs().max())
+        log(f"lazy against dense carrier, {STEPS} float32 steps of the "
+            f"flagship from one init, same batches and negatives: loss max "
+            f"relative diff {loss_rel:.3g} (bound {LAZY_LOSS_RTOL}); "
+            "settled max abs diff "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+            + f" (bounds: tables {LAZY_TABLE_ATOL}, momentum "
+            f"{LAZY_MOMENTUM_ATOL}) [{card}]")
+        if loss_rel > LAZY_LOSS_RTOL or any(
+                v > (LAZY_TABLE_ATOL if "table" in k else LAZY_MOMENTUM_ATOL)
+                for k, v in worst.items()):
+            raise AssertionError(f"lazy plus flush is off the dense "
+                                 f"trajectory: loss {loss_rel}, {worst}")
+        del runs, sl, sd, settled, batches, negs, feed
+
+        # ---- 2. the main path under the lazy carrier, bf16 scoring:
+        # 20 steps, one fused eval round, export
+        for mod in kernels.values():
+            mod.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        tr = fsr.run_train(run)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches = {name: mod.LAUNCHES.count for name, mod in kernels.items()}
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"the lazy path never launched {name}")
+        res, cfg = tr["result"], tr["cfg"]
+        state = res.state
+        ev = res.last_eval_metrics
+        loss = res.last_train_metrics.get("train_loss", float("nan"))
+        if not pl.use_lazy_momentum(cfg) or res.steps_run != STEPS \
+                or not np.isfinite(loss) or not ev \
+                or not all(np.isfinite(v) for v in ev.values()):
+            raise AssertionError(f"lazy training: {res.steps_run} steps, "
+                                 f"loss {loss}, eval {ev}")
+        report = fsr.train_report(run, tr)
+        log(f"lazy path: {STEPS} steps of the flagship (bf16, momentum 0.98, "
+            f"lazy carrier) + one fused eval round + export in {path_s:.1f} "
+            f"s; launches {launches}; loss of steps 11-20 {loss:.5f}; "
+            f"{res.last_train_metrics['examples_per_sec']:.0f} examples/s "
+            f"over steps 11-20 ({res.last_train_metrics['ms_per_step']:.3f} "
+            f"ms/step, host clock), steady "
+            f"{report['steady_examples_per_s']:.0f}; eval round "
+            f"{res.eval_round_s[0] * 1e3:.1f} ms; recall@500 track "
+            f"{ev['eval_track_recall']:.5f} (dense carrier, train phase: "
+            f"{dense['eval_track_recall']:.5f}) artist "
+            f"{ev['eval_artist_recall']:.5f} [{card}]")
+        out["launches"] = launches
+
+        # fused against exact eval on the same 2,048 playlists
+        model = state.params
+        batch = pl.to_device(fsr.host_batch(np.random.default_rng(999),
+                                            2048, 5, 32, run), dev)
+        aux = pl.make_corpus_embed_setup(model, cfg, corpus)(state)
+        fused_topk = pl.make_eval_topk(model, cfg, corpus)
+        exact_topk = pl.make_eval_topk(
+            model, dataclasses.replace(cfg, eval_fused_bins=0), corpus)
+        fused_ms = host_ms(lambda: (fused_topk(state, batch, aux),
+                                    torch.cuda.synchronize()), 3)
+        fv, fi = fused_topk(state, batch, aux)
+        xv, xi = exact_topk(state, batch, aux[0])
+        settled = pl.settled_params(state, cfg)
+        overlap = affinity_overlap(settled, batch, aux[0], corpus, fi, xi)
+        fm = pl._hit_metrics(batch, fv, fi, corpus["tracks"],
+                             corpus["artists"], 500)
+        xm = pl._hit_metrics(batch, xv, xi, corpus["tracks"],
+                             corpus["artists"], 500)
+        log(f"lazy eval quality: fused overlap@500 vs exact {overlap:.5f} "
+            f"over 2048 playlists (floor {QUALITY_FLOOR}); recall@500 track "
+            f"fused {float(fm['track_recall']):.5f} exact "
+            f"{float(xm['track_recall']):.5f}; fused top-500 of 2048 "
+            f"playlists {fused_ms:.1f} ms (host clock, corpus embed "
+            f"excluded) [{card}]")
+        if overlap < QUALITY_FLOOR:
+            raise AssertionError(f"lazy eval overlap@500 {overlap}")
+        del aux, fv, fi, xv, xi
+
+        # the exported artifact is the settled model
+        params, _, meta = load_model(tr["artifact"])
+        for t in ("album", "artist"):
+            if not np.array_equal(params[f"{t}_embed"]["embedding"],
+                                  getattr(settled, f"{t}_embed")
+                                  .embedding.cpu().numpy()):
+                raise AssertionError(f"the artifact's {t} table is not the "
+                                     "settled one")
+        # checkpoint round trip, then both adaptations
+        ck = Checkpointer(os.path.join(work, "lazy_ckpt"))
+        t0 = time.perf_counter()
+        ck.save(state.step, state)
+        save_s = time.perf_counter() - t0
+        _, fresh = pl.init_state(dataclasses.replace(cfg, seed=1), dev)
+        bad = bit_equal_states(ck.restore(fresh), state)
+        if bad:
+            raise AssertionError(f"lazy checkpoint round trip differs: {bad}")
+        cfg_dn = dataclasses.replace(cfg, momentum_carrier="dense")
+        _, to_dense = pl.init_state(dataclasses.replace(cfg_dn, seed=2), dev)
+        pl.restore_adapt_carrier(ck, to_dense, cfg_dn)
+        pl.settle_momentum_state(fresh, cfg)
+        bad = bit_equal_states(to_dense, dataclasses.replace(
+            fresh, opt_state={t: {"momentum": d["momentum"]}
+                              for t, d in fresh.opt_state.items()}))
+        if bad:
+            raise AssertionError(f"lazy to dense adaptation: {bad}")
+        ck_d = Checkpointer(os.path.join(work, "dense_ckpt"))
+        ck_d.save(to_dense.step, to_dense)
+        _, to_lazy = pl.init_state(dataclasses.replace(cfg, seed=3), dev)
+        pl.restore_adapt_carrier(ck_d, to_lazy, cfg)
+        bad = bit_equal_states(to_lazy, dataclasses.replace(
+            to_dense, opt_state={t: {**d, "last_step": torch.full_like(
+                to_lazy.opt_state[t]["last_step"], to_dense.step)}
+                for t, d in to_dense.opt_state.items()}))
+        if bad:
+            raise AssertionError(f"dense to lazy adaptation: {bad}")
+        mb = os.path.getsize(ck.path(state.step)) / 1e6
+        log(f"lazy checkpoint: {mb:.1f} MB saved in {save_s:.2f} s, restored "
+            f"bit for bit (last_step included); adapted lazy to dense (every "
+            f"row settled) and dense to lazy (last_step = {state.step}), "
+            f"both bit-equal to their expectation; the exported artifact is "
+            f"the settled model [{card}]")
+        del tr, res, state, model, settled, fresh, to_dense, to_lazy, batch
+        del corpus, params
+
+        # ---- 3. the carrier's cost, at the flagship and at 10M buckets
+        out["carrier"] = {b: carrier_cost(card, work, b)
+                          for b in (run.album_buckets, BIG_BUCKETS)}
+
+        # ---- 4. the flagship bench tool, a short run
+        bench = fqb.main(["--spc", "8", "--n_calls", "2", "--out",
+                          os.path.join(work, "bench.json")])
+        log(f"flagship_quality_bench (--spc 8 --n_calls 2), examples/s: "
+            + ", ".join(f"{k} {v:.0f}" for k, v in bench.items()
+                        if isinstance(v, float)) + f" [{card}]")
+
+    # ---- 5. scale_table at 100M rows, the earlier phases' tensors freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["big_err"] = check_big_table(card, SCALE_ROWS, 32, SCALE_IDS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mod in (gp, sa):
+        mod.LAUNCHES.reset()
+    scale = st.run(st.ScaleConfig(
+        rows=SCALE_ROWS, dim=32, ids_per_step=SCALE_IDS, momentum=0.98,
+        calls=5, device="cuda"))
+    scale_launches = {"gather_pool": gp.LAUNCHES.count,
+                      "scatter_add": sa.LAUNCHES.count}
+    if min(scale_launches.values()) <= 0 or not scale["value"] > 0 \
+            or not np.isfinite(scale["last_loss"]):
+        raise AssertionError(f"scale_table: {scale}, {scale_launches}")
+    log(f"scale_table --rows {SCALE_ROWS} --dim 32 --ids_per_step "
+        f"{SCALE_IDS} --momentum 0.98 (lazy carrier, float32: "
+        f"{scale['table_gb']:.1f} GB table + as much momentum + last_step): "
+        f"{scale['value']:.0f} rows/s, {scale['ms_per_step']:.3f} ms/step "
+        f"over {scale['steps']} steps (host clock), peak device memory "
+        f"{scale['peak_memory_gb']:.2f} GB; launches {scale_launches} "
+        f"[{scale['card']}]")
+    out["scale"] = scale
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1877,7 +2255,9 @@ def main() -> int:
         # exact paths need full float32 products, never TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        card = card_line()
+        from esrecsys_tpu_torch.core.device import card_line
+
+        card = card_line(torch.device("cuda", 0))
         log(card)
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} "
@@ -1904,12 +2284,13 @@ def main() -> int:
             int8_res = timed("int8", phase_int8, card, ctx)
             del ctx
         tool_res = timed("tool", phase_tool, card)
+        lazy_res = timed("lazy", phase_lazy, card, train_res)
         log(f"seconds per phase: {spent}")
     except Exception:
         traceback.print_exc()
         return 1
     train_res["gather_pool"]["max_abs_err"] = g_err
-    train_res["scatter_add"]["max_abs_err"] = s_err
+    train_res["scatter_add"]["max_abs_err"] = max(s_err, lazy_res["big_err"])
     aff = train_res["fused_affinity"]
     aff["max_abs_err"] = max(a_err, aff["max_abs_err"])
     rows = [{

@@ -60,9 +60,11 @@ def state_from_jax(jax_state, cfg, device=None):
     """A JAX playlist ``TrainState`` -> the port's ``TrainState`` for the
     same ``PlaylistConfig`` fields: params, ``step``, and the optimizer
     state, on ``device`` (default: the card, as every entry point; pass
-    ``device="cpu"`` on a host without one). The row-sparse step's dense momentum carrier
-    (``{"album": {"momentum"}, "artist": {"momentum"}}``) is copied as it
-    is; the dense step's optax trace becomes the SGD momentum buffers."""
+    ``device="cpu"`` on a host without one). The row-sparse step's
+    momentum state is copied as it is: ``{"album": {"momentum"}, "artist":
+    {"momentum"}}`` for the dense carrier, with each table's int32
+    ``last_step`` for the lazy one; the dense step's optax trace becomes
+    the SGD momentum buffers."""
     from esrecsys_tpu_torch.workloads.playlist import init_state
 
     model, state = init_state(cfg, device)
@@ -70,8 +72,9 @@ def state_from_jax(jax_state, cfg, device=None):
     state.step = int(np.asarray(jax_state.step))
     if cfg.sparse_updates and cfg.momentum:
         for table in ("album", "artist"):
-            state.opt_state[table]["momentum"].copy_(torch.from_numpy(
-                np.array(jax_state.opt_state[table]["momentum"])))
+            for key, t in state.opt_state[table].items():
+                t.copy_(torch.from_numpy(
+                    np.array(jax_state.opt_state[table][key])))
     elif not cfg.sparse_updates:
         trace = _optax_trace(jax_state.opt_state)
         if trace is not None and cfg.momentum:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -23,3 +24,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             f"device {dev} was requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def card_line(device: torch.device) -> Optional[str]:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, for
+    a CUDA ``device``; None on the CPU. A measurement on the card names
+    both, since a card set below its limit runs slower under load."""
+    if device.type != "cuda":
+        return None
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         f"--id={index}"], capture_output=True, text=True, check=True,
+        timeout=60)
+    return out.stdout.strip()

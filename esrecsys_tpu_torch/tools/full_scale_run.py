@@ -10,8 +10,11 @@ in the shared artifact format, loaded back and served. ``--train`` first
 trains the quality flagship (feature_size 32, a shared pool of 512
 negatives, row-sparse steps with SGD momentum 0.98 at lr 0.004, bf16
 scoring) with a full-corpus recall@500 eval every ``--eval_every`` steps,
-then exports the trained model and serves that artifact. Feeds
-(``--feed``):
+then exports the trained model and serves that artifact.
+``--momentum_carrier`` (``auto``, ``dense`` or ``lazy``) picks the
+momentum carrier; ``auto`` takes the lazy one once a table passes
+``workloads/playlist.DENSE_MOMENTUM_MAX_BYTES`` (``--album_buckets
+10000000`` at D=32 is 1.28 GB). Feeds (``--feed``):
 
   * ``device`` (default): batches drawn on the device, so no batch crosses
     the host; ``--ckpt_every N`` adds the checkpoint cadence (to
@@ -33,7 +36,7 @@ device.
 Run: python -m esrecsys_tpu_torch.tools.full_scale_run --out_dir DIR \
          [--fused] [--quantized_serving [--rescore_int8]] [--device cuda] \
          [--train --steps N --eval_fused_bins L [--feed host|device]
-          [--ckpt_every N [--ckpt_async]]]
+          [--ckpt_every N [--ckpt_async]] [--momentum_carrier lazy]]
 """
 
 from __future__ import annotations
@@ -107,6 +110,7 @@ class TrainRunConfig(ServingRunConfig):
     ckpt_async: bool = False
     n_shards: int = 4  # host feed: packed training shards
     shard_examples: int = 262_144
+    momentum_carrier: str = "auto"  # "auto" | "dense" | "lazy"
 
 
 def mix_mod(ids: np.ndarray, salt: int, mod: int) -> np.ndarray:
@@ -165,7 +169,8 @@ def flagship_cfg(run: TrainRunConfig) -> pl.PlaylistConfig:
         feature_size=run.feature_size, album_hash_buckets=run.album_buckets,
         num_artists=run.num_artists, num_negatives=512,
         shared_negatives=True, sparse_updates=True, momentum=0.98,
-        learning_rate=0.004, compute_dtype="bfloat16",
+        momentum_carrier=run.momentum_carrier, learning_rate=0.004,
+        compute_dtype="bfloat16",
         batch_size=run.batch_size, context_size=5, max_next=run.max_next,
         max_steps=run.steps, log_every_steps=run.log_every,
         eval_every_steps=run.eval_every, eval_k=500, eval_group=8,
@@ -445,6 +450,10 @@ def main(argv=None):
                         "feed's train() still saves its last step)")
     p.add_argument("--ckpt_async", action="store_true",
                    help="write the device feed's checkpoints on a thread")
+    p.add_argument("--momentum_carrier", default="auto",
+                   choices=["auto", "dense", "lazy"],
+                   help="the row-sparse step's momentum carrier; auto takes "
+                        "the lazy one past 1 GB a table")
     args = p.parse_args(argv)
     cfg = TrainRunConfig(
         out_dir=args.out_dir, num_tracks=args.corpus_size,
@@ -456,7 +465,8 @@ def main(argv=None):
         eval_every=args.eval_every, eval_playlists=args.eval_playlists,
         eval_fused_bins=args.eval_fused_bins, feed=args.feed,
         n_shards=args.n_shards, shard_examples=args.shard_examples,
-        ckpt_every=args.ckpt_every, ckpt_async=args.ckpt_async)
+        ckpt_every=args.ckpt_every, ckpt_async=args.ckpt_async,
+        momentum_carrier=args.momentum_carrier)
     os.makedirs(cfg.out_dir, exist_ok=True)
     if args.train:
         out = train_report(cfg, run_train(cfg))

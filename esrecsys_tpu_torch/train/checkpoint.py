@@ -3,16 +3,16 @@
 
 One ``.npz`` per step, ``<directory>/ckpt-<step>.npz``, holding the train
 state under flattened keys: ``params/<module>/<param>`` as
-``train/export.py`` writes them, ``opt_state/...`` (the dense momentum
-carrier's ``opt_state/<table>/momentum``, or a ``torch.optim``
+``train/export.py`` writes them, ``opt_state/...`` (the momentum
+carriers' ``opt_state/<table>/momentum``, with the lazy carrier's int32
+``opt_state/<table>/last_step`` beside it, or a ``torch.optim``
 optimizer's per-parameter state as ``opt_state/<module>/<param>/<key>``)
 and ``step``. A save writes a temporary file and ``os.replace``s it into
 place, so a save cut short (a signal, a crash) never becomes
 ``latest_step``; older checkpoints are pruned to ``max_to_keep`` only
-after the new one is complete.
-
-Restoring a lazy momentum carrier's checkpoint (``last_step`` rows) is
-not ported yet: it raises.
+after the new one is complete. A checkpoint whose keys do not match the
+template raises ``ValueError`` (``workloads/playlist.restore_adapt_carrier``
+converts between the two momentum carriers).
 """
 
 from __future__ import annotations
@@ -206,12 +206,6 @@ class Checkpointer:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         with np.load(self.path(step)) as z:
             saved = {k: z[k] for k in z.files}
-        if any(k.startswith("opt_state/") and k.endswith("/last_step")
-               for k in saved):
-            raise NotImplementedError(
-                "this checkpoint holds the lazy momentum carrier "
-                "(opt_state .../last_step); restoring it needs the lazy "
-                "carrier, which is not ported yet (ROADMAP queue 1 item 3)")
         optimizer = isinstance(state_template.opt_state,
                                torch.optim.Optimizer)
         targets = _state_tensors(state_template)

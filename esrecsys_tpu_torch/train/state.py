@@ -18,6 +18,7 @@ class TrainState:
     step: int
     params: nn.Module
     # the row-sparse step: {"album": {"momentum": t}, "artist": {...}} for
-    # the dense momentum carrier, None at momentum 0; the dense step: a
-    # torch.optim.SGD over params
+    # the dense momentum carrier, with an int32 "last_step" per table for
+    # the lazy one, None at momentum 0; the dense step: a torch.optim.SGD
+    # over params
     opt_state: Any = None

@@ -4,20 +4,20 @@ the training entry point (counterpart of
 
 Ported: ``PlaylistConfig`` (the fields below), ``playlist_loss``, the dense
 autograd step with SGD momentum, the row-sparse step at momentum 0 and
-with the dense momentum carrier, ``init_state``, the exact and fused
-recall@k eval over the full corpus, and ``train()`` with its CLI: TFRecord
-or packed ``.npz`` files in, the eval, checkpoint and preemption cadences,
-resume, and the exported artifact out. The row-sparse step gathers its
-touched rows through the row-gather kernel, differentiates the loss with
-respect to those rows, and scatter-adds the row gradients through the
-scatter-add kernel; the fused eval scans the corpus through the
-playlist-affinity kernel.
+with either momentum carrier (dense, or lazy: ``ops/optim.py``),
+``init_state``, ``settled_params``, ``settle_momentum_state``, the exact
+and fused recall@k eval over the full corpus, ``restore_adapt_carrier``
+between the two carriers, and ``train()`` with its CLI: TFRecord or packed
+``.npz`` files in, the eval, checkpoint and preemption cadences, resume,
+and the exported artifact out. The row-sparse step gathers its touched
+rows through the row-gather kernel, differentiates the loss with respect
+to those rows, and scatter-adds the row gradients through the scatter-add
+kernel; the fused eval scans the corpus through the playlist-affinity
+kernel.
 
-Not ported yet: the lazy momentum carrier (configurations that resolve to
-it raise, and so does restoring its checkpoints), the TPU's packed table
-layouts (a TPU layout trick, never ported), ``steps_per_call``, and
-everything multi-device (the sharded eval, ``n_model_shards > 1``,
-per-process file slices).
+Not ported: the TPU's packed table layouts (a TPU layout trick, never
+ported), ``steps_per_call``, and everything multi-device (the sharded
+eval, ``n_model_shards > 1``, per-process file slices).
 
 Run: python -m esrecsys_tpu_torch.workloads.playlist \
          --train_pattern 'data/training/*.tfrecord' \
@@ -39,6 +39,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from esrecsys_tpu_torch.core import config as config_lib
 from esrecsys_tpu_torch.core.device import pad_to_multiple, resolve_device
@@ -53,7 +54,10 @@ from esrecsys_tpu_torch.ops import guards, negatives
 from esrecsys_tpu_torch.ops.losses import relu
 from esrecsys_tpu_torch.ops.lookup import gather_rows
 from esrecsys_tpu_torch.ops.metrics import ranking_metrics
-from esrecsys_tpu_torch.ops.optim import momentum_init
+from esrecsys_tpu_torch.ops.optim import (lazy_momentum_update,
+                                          momentum_catchup_rows,
+                                          momentum_flush, momentum_init,
+                                          momentum_settle)
 from esrecsys_tpu_torch.ops.scatter import scatter_add_rows
 from esrecsys_tpu_torch.retrieval.fused import (binned_affinity_candidates,
                                                 pack_catalog)
@@ -94,7 +98,7 @@ class PlaylistConfig:
     exact_negative_range: bool = False  # sample in [0, corpus - 1)
     sparse_updates: bool = False  # row-sparse step (gather, row grads,
     # scatter-add) in place of autograd through the tables
-    momentum_carrier: str = "auto"  # "auto" | "dense" | "lazy" (not ported)
+    momentum_carrier: str = "auto"  # "auto" | "dense" | "lazy"
     learning_rate: float = 1e-3
     momentum: float = 0.98
     regularization: float = 10.0   # L2-norm cap
@@ -179,8 +183,9 @@ def playlist_loss(result: Tuple, next_mask: torch.Tensor,
 
 # ------------------------------------------------------------------ state
 
-# Above this per-table byte size the reference switches to the lazy
-# momentum carrier (not ported yet).
+# Above this per-table byte size "auto" takes the lazy momentum carrier, as
+# the reference does (kept for parity; the crossover on the card is
+# measured in PERF.md).
 DENSE_MOMENTUM_MAX_BYTES = 1_000_000_000
 
 
@@ -200,11 +205,10 @@ def use_dense_momentum(cfg: PlaylistConfig) -> bool:
     return biggest * cfg.feature_size * 4 <= DENSE_MOMENTUM_MAX_BYTES
 
 
-def _require_ported_carrier(cfg: PlaylistConfig) -> None:
-    if cfg.sparse_updates and cfg.momentum and not use_dense_momentum(cfg):
-        raise NotImplementedError(
-            "the lazy momentum carrier (momentum_carrier='lazy', or 'auto' "
-            "past DENSE_MOMENTUM_MAX_BYTES) is not ported yet")
+def use_lazy_momentum(cfg: PlaylistConfig) -> bool:
+    """Whether the row-sparse momentum step runs the lazy carrier."""
+    return bool(cfg.sparse_updates and cfg.momentum
+                and not use_dense_momentum(cfg))
 
 
 def init_state(cfg: PlaylistConfig, device=None,
@@ -212,10 +216,11 @@ def init_state(cfg: PlaylistConfig, device=None,
                ) -> Tuple[PlaylistModel, TrainState]:
     """The model (tables padded to 128 rows where D divides 128, as the
     reference pads them) initialised from ``generator`` (default: seeded
-    with ``cfg.seed`` on the device), and its train state: a dense momentum
-    buffer per table for the row-sparse step with momentum, nothing at
-    momentum 0, an SGD optimizer for the dense step."""
-    _require_ported_carrier(cfg)
+    with ``cfg.seed`` on the device), and its train state: per table a
+    momentum buffer (the dense carrier) or a momentum buffer and
+    ``last_step`` rows (the lazy carrier) for the row-sparse step with
+    momentum, nothing at momentum 0, an SGD optimizer for the dense
+    step."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -228,9 +233,10 @@ def init_state(cfg: PlaylistConfig, device=None,
     if cfg.sparse_updates:
         opt_state = None
         if cfg.momentum:
+            lazy = use_lazy_momentum(cfg)
             opt_state = {
-                "album": momentum_init(model.album_embed.embedding),
-                "artist": momentum_init(model.artist_embed.embedding)}
+                "album": momentum_init(model.album_embed.embedding, lazy),
+                "artist": momentum_init(model.artist_embed.embedding, lazy)}
     else:
         opt_state = torch.optim.SGD(model.parameters(), lr=cfg.learning_rate,
                                     momentum=cfg.momentum or 0.0)
@@ -238,10 +244,45 @@ def init_state(cfg: PlaylistConfig, device=None,
 
 
 def settled_params(state: TrainState, cfg: PlaylistConfig) -> PlaylistModel:
-    """The model to evaluate and export. The dense carrier's rows are
-    always settled, so this is ``state.params``."""
-    _require_ported_carrier(cfg)
-    return state.params
+    """The model to evaluate and export: under the lazy carrier a new
+    ``PlaylistModel`` whose tables are flushed copies
+    (:func:`momentum_flush`, the dense trajectory at ``state.step``), the
+    state untouched; otherwise ``state.params``, whose rows are always
+    settled."""
+    if not use_lazy_momentum(cfg):
+        return state.params
+    model = state.params
+    out = PlaylistModel(model.feature_size, model.album_hash_buckets,
+                        model.num_artists, device="meta",
+                        compute_dtype=model.compute_dtype)
+    with torch.no_grad():
+        for name, table in (("album", model.album_embed),
+                            ("artist", model.artist_embed)):
+            flushed = momentum_flush(
+                table.embedding, state.opt_state[name], lr=cfg.learning_rate,
+                mu=cfg.momentum, step=state.step)
+            out.get_submodule(f"{name}_embed").embedding = nn.Parameter(
+                flushed, requires_grad=False)
+    return out
+
+
+def settle_momentum_state(state: TrainState, cfg: PlaylistConfig,
+                          lr: Optional[float] = None) -> TrainState:
+    """The learning-rate-boundary barrier of the lazy carrier: settle every
+    row at the old lr (``lr``, default ``cfg.learning_rate``) and advance
+    ``last_step`` (:func:`momentum_settle`), in place, so a
+    piecewise-constant schedule stays the dense SGD-momentum trajectory of
+    that schedule. Returns ``state``; nothing to do for other
+    configurations (the dense carrier has no catch-up, so its lr can change
+    between any two steps)."""
+    if use_lazy_momentum(cfg):
+        lr = cfg.learning_rate if lr is None else lr
+        with torch.no_grad():
+            for name, table in (("album", state.params.album_embed),
+                                ("artist", state.params.artist_embed)):
+                momentum_settle(table.embedding, state.opt_state[name],
+                                lr=lr, mu=cfg.momentum, step=state.step)
+    return state
 
 
 # ------------------------------------------------------------------ steps
@@ -306,19 +347,22 @@ def make_train_step(model: PlaylistModel, cfg: PlaylistConfig,
 
 def make_sparse_train_step(model: PlaylistModel, cfg: PlaylistConfig,
                            corpus: Batch, seed: int = 0):
-    """Row-sparse SGD step, at momentum 0 or with the dense momentum
-    carrier:
+    """Row-sparse SGD step, at momentum 0 or with either momentum carrier:
 
       1. gather each table's touched rows once (ctx | next | neg ids, album
-         ids floor-mod the bucket count) through the row-gather kernel;
+         ids floor-mod the bucket count) through the row-gather kernel; the
+         lazy carrier adds each row's pending catch-up, so the forward sees
+         settled rows;
       2. differentiate the loss with respect to the gathered rows;
       3. momentum 0: scatter-add ``-lr * row_grad`` into the table;
          dense carrier: ``m *= mu``, scatter-add the row grads into ``m``,
-         ``p -= lr * m`` (duplicates sum, as the dense gradient would).
+         ``p -= lr * m`` (duplicates sum, as the dense gradient would);
+         lazy carrier: :func:`lazy_momentum_update` on the touched rows.
 
-    Tables and momentum buffers update in place. ``train_step(state,
+    Tables and optimizer state update in place. ``train_step(state,
     batch, neg_ids=None)`` as in :func:`make_train_step`."""
-    _require_ported_carrier(cfg)
+    lazy = use_lazy_momentum(cfg)
+    lr, mu = cfg.learning_rate, cfg.momentum
     n_albums = cfg.album_hash_buckets
     for_step = _step_generator(model.album_embed.embedding.device, seed)
 
@@ -342,8 +386,17 @@ def make_sparse_train_step(model: PlaylistModel, cfg: PlaylistConfig,
         t_alb = state.params.album_embed.embedding
         t_art = state.params.artist_embed.embedding
         with torch.no_grad():
-            rows_alb = gather_rows(t_alb, alb_ids).requires_grad_()
-            rows_art = gather_rows(t_art, art_ids).requires_grad_()
+            rows_alb = gather_rows(t_alb, alb_ids)
+            rows_art = gather_rows(t_art, art_ids)
+            if lazy:
+                rows_alb += momentum_catchup_rows(
+                    state.opt_state["album"], alb_ids, lr=lr, mu=mu,
+                    step=state.step)
+                rows_art += momentum_catchup_rows(
+                    state.opt_state["artist"], art_ids, lr=lr, mu=mu,
+                    step=state.step)
+        rows_alb.requires_grad_()
+        rows_art.requires_grad_()
         e = torch.cat([rows_alb, rows_art], dim=-1)  # (n, 2F)
         d = e.shape[-1]
         ctx_e = e[:b * c].reshape(b, c, d)
@@ -360,13 +413,19 @@ def make_sparse_train_step(model: PlaylistModel, cfg: PlaylistConfig,
         g_alb, g_art = torch.autograd.grad(metrics["loss"],
                                            (rows_alb, rows_art))
 
-        lr = cfg.learning_rate
         with torch.no_grad():
-            if cfg.momentum:
+            if lazy:
+                lazy_momentum_update(t_alb, state.opt_state["album"],
+                                     alb_ids, g_alb, lr=lr, mu=mu,
+                                     step=state.step)
+                lazy_momentum_update(t_art, state.opt_state["artist"],
+                                     art_ids, g_art, lr=lr, mu=mu,
+                                     step=state.step)
+            elif mu:
                 m_alb = state.opt_state["album"]["momentum"]
                 m_art = state.opt_state["artist"]["momentum"]
-                m_alb.mul_(cfg.momentum)
-                m_art.mul_(cfg.momentum)
+                m_alb.mul_(mu)
+                m_art.mul_(mu)
                 scatter_add_rows(m_alb, alb_ids, g_alb)
                 scatter_add_rows(m_art, art_ids, g_art)
                 t_alb.sub_(lr * m_alb)
@@ -429,6 +488,27 @@ def make_corpus_embed_setup(model: PlaylistModel, cfg: PlaylistConfig,
     return setup
 
 
+def _settled_ctx_embed(state: TrainState, cfg: PlaylistConfig,
+                       album_ctx: torch.Tensor,
+                       artist_ctx: torch.Tensor) -> torch.Tensor:
+    """(B, C, 2F) context embeddings at settled rows: under the lazy
+    carrier only the gathered rows get their catch-up (B * C rows, not a
+    flush of both tables per eval batch; the round's corpus matrix is
+    settled once by :func:`make_corpus_embed_setup`)."""
+    e = state.params.get_embeddings(album_ctx, artist_ctx)
+    if not use_lazy_momentum(cfg):
+        return e
+    kw = dict(lr=cfg.learning_rate, mu=cfg.momentum, step=state.step)
+    catchup = torch.cat([
+        momentum_catchup_rows(
+            state.opt_state["album"],
+            torch.remainder(album_ctx, cfg.album_hash_buckets).reshape(-1),
+            **kw),
+        momentum_catchup_rows(state.opt_state["artist"],
+                              artist_ctx.reshape(-1), **kw)], dim=-1)
+    return e + catchup.reshape(e.shape)
+
+
 def make_eval_topk(model: PlaylistModel, cfg: PlaylistConfig, corpus: Batch):
     """(state, batch, corpus_embed=None) -> (top_vals (B, k), top_idx
     (B, k) int64): each playlist's top ``eval_k`` corpus items by affinity
@@ -456,8 +536,7 @@ def make_eval_topk(model: PlaylistModel, cfg: PlaylistConfig, corpus: Batch):
         album_ctx = batch["album_context"]
         artist_ctx = batch["artist_context"]
         with torch.no_grad():
-            ctx_embed = settled_params(state, cfg).get_embeddings(
-                album_ctx, artist_ctx)
+            ctx_embed = _settled_ctx_embed(state, cfg, album_ctx, artist_ctx)
 
         def topk_chunk(ctx_embed, album_ctx, artist_ctx):
             def score_block(start):
@@ -554,16 +633,41 @@ def export_metadata(cfg: PlaylistConfig) -> Dict[str, object]:
 
 def restore_adapt_carrier(ckpt: Checkpointer, state_template: TrainState,
                           cfg: PlaylistConfig) -> TrainState:
-    """Restore the latest checkpoint into ``state_template``.
-
-    The reference also converts between its two momentum carriers here
-    (a lazy checkpoint settled into the dense carrier, a dense one given
-    ``last_step`` rows). The port has the dense carrier only, so this is
-    the plain restore: a dense checkpoint restores as it is, and a lazy
-    one raises ``NotImplementedError`` until the lazy carrier is ported.
-    """
-    _require_ported_carrier(cfg)
-    return ckpt.restore(state_template)
+    """Restore the latest checkpoint into ``state_template``, converting
+    the row-sparse momentum state when the checkpoint was written under
+    the other carrier. Both conversions are exact: lazy to dense settles
+    every row (:func:`settle_momentum_state`, after which the buffers are
+    the dense trajectory's) and drops ``last_step``; dense to lazy adds
+    ``last_step = step`` (dense rows are always settled). The template's
+    tensors receive the result. A checkpoint that fits neither carrier
+    raises ``ValueError``."""
+    try:
+        return ckpt.restore(state_template)
+    except ValueError:
+        if not (cfg.sparse_updates and cfg.momentum):
+            raise
+    lazy = use_lazy_momentum(cfg)
+    other = dataclasses.replace(cfg,
+                                momentum_carrier="dense" if lazy else "lazy")
+    os_ = state_template.opt_state
+    # the template's momentum buffers, with or without last_step rows
+    tmpl = {t: {"momentum": os_[t]["momentum"]} for t in os_}
+    if not lazy:  # the checkpoint holds the lazy carrier
+        for t in os_:
+            m = os_[t]["momentum"]
+            tmpl[t]["last_step"] = torch.zeros(
+                (m.shape[0],), dtype=torch.int32, device=m.device)
+    st = ckpt.restore(TrainState(step=0, params=state_template.params,
+                                 opt_state=tmpl))
+    if lazy:
+        for t in os_:
+            os_[t]["last_step"].fill_(st.step)
+    else:
+        settle_momentum_state(st, other)
+    state_template.step = st.step
+    log.info("adapted checkpoint opt_state from the %s momentum carrier to "
+             "the configured one", other.momentum_carrier)
+    return state_template
 
 
 def validate_batch(batch, num_tracks: int, num_albums: int,

@@ -2,7 +2,8 @@
 of the playlist train states, keep-last-k, temporary files that never
 become the latest step, async saves, row adaptation equal to the JAX
 package's ``_adapt_rows``, a ``state_from_jax`` state saved and restored
-equal to the JAX state, and the refusal of lazy-carrier checkpoints.
+equal to the JAX state, and lazy-carrier checkpoints (``last_step`` rows)
+restored as they are and adapted to the dense carrier.
 Tolerance: none; every comparison is bit for bit.
 """
 
@@ -24,7 +25,8 @@ SMALL = dict(feature_size=8, album_hash_buckets=150, num_artists=40,
 
 def _state(seed, **kw):
     """A playlist state on the CPU whose every tensor holds random values
-    (momentum buffers and SGD buffers included), at step 7 + seed."""
+    (momentum buffers, ``last_step`` rows and SGD buffers included), at
+    step 7 + seed."""
     cfg = tpl.PlaylistConfig(seed=seed, **{**SMALL, **kw})
     model, state = tpl.init_state(cfg, "cpu")
     gen = torch.Generator().manual_seed(100 + seed)
@@ -37,6 +39,9 @@ def _state(seed, **kw):
             for t in state.opt_state.values():
                 t["momentum"].copy_(torch.randn(t["momentum"].shape,
                                                 generator=gen))
+                if "last_step" in t:
+                    t["last_step"].copy_(torch.randint(
+                        0, 8, t["last_step"].shape, generator=gen))
     state.step = 7 + seed
     return cfg, state
 
@@ -49,7 +54,8 @@ def _tensors(state):
             out[f"sgd/{n}"] = opt.state[p]["momentum_buffer"].clone()
     elif opt is not None:
         for t, d in opt.items():
-            out[f"{t}/momentum"] = d["momentum"].clone()
+            for key, v in d.items():
+                out[f"{t}/{key}"] = v.clone()
     return out
 
 
@@ -190,21 +196,34 @@ def test_state_from_jax_saved_and_restored_equals_the_jax_state(tmp_path):
 
 
 def test_lazy_carrier_checkpoint_raises(tmp_path):
-    cfg, state = _state(0, sparse_updates=True, momentum=0.9)
+    """A lazy-carrier checkpoint (int32 ``last_step`` rows) restores bit
+    for bit into a lazy template. Its plain restore into a dense template
+    raises ``ValueError``, and ``restore_adapt_carrier`` settles it into the
+    dense carrier instead; a structure of any other kind raises
+    ``ValueError`` on both."""
+    lazy = dict(sparse_updates=True, momentum=0.9, momentum_carrier="lazy")
+    cfg, state = _state(0, **lazy)
     ck = Checkpointer(str(tmp_path))
     ck.save(state.step, state)
     with np.load(ck.path(7)) as z:
-        arrays = {k: z[k] for k in z.files}
-    for t in ("album", "artist"):
-        rows = arrays[f"opt_state/{t}/momentum"].shape[0]
-        arrays[f"opt_state/{t}/last_step"] = np.zeros(rows, np.int32)
-    np.savez(ck.path(9), **arrays)
-    _, fresh = _state(1, sparse_updates=True, momentum=0.9)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ck.restore(fresh)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tpl.restore_adapt_carrier(ck, fresh, cfg)
+        for t in ("album", "artist"):
+            assert z[f"opt_state/{t}/last_step"].dtype == np.int32
+    _, fresh = _state(1, **lazy)
+    _assert_bit_equal(_tensors(ck.restore(fresh)), _tensors(state))
+    assert fresh.step == 7
+    dense_cfg, dense = _state(1, sparse_updates=True, momentum=0.9)
+    with pytest.raises(ValueError, match="unexpected"):
+        ck.restore(dense)
+    adapted = tpl.restore_adapt_carrier(ck, dense, dense_cfg)
+    assert adapted is dense and adapted.step == 7
+    assert set(adapted.opt_state["album"]) == {"momentum"}
+    want = tpl.settled_params(state, cfg)
+    for name in ("album_embed", "artist_embed"):
+        assert torch.equal(getattr(adapted.params, name).embedding.detach(),
+                           getattr(want, name).embedding)
     # a structure mismatch of any other kind is a ValueError
-    _, no_momentum = _state(1, sparse_updates=True, momentum=0.0)
+    none_cfg, no_momentum = _state(1, sparse_updates=True, momentum=0.0)
     with pytest.raises(ValueError, match="unexpected"):
         ck.restore(no_momentum, step=7)
+    with pytest.raises(ValueError, match="unexpected"):
+        tpl.restore_adapt_carrier(ck, no_momentum, none_cfg)

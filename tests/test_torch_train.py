@@ -322,9 +322,14 @@ def test_init_state_and_carrier():
     for kw in ({"momentum_carrier": "lazy"}, {"num_artists": 500_000_000}):
         jc, tc = _cfgs(momentum=0.9, sparse_updates=True, **kw)
         assert tpl.use_dense_momentum(tc) == jpl.use_dense_momentum(jc)
-    with pytest.raises(NotImplementedError, match="lazy"):
-        tpl.init_state(dataclasses.replace(tcfg, momentum_carrier="lazy"),
-                       "cpu")
+    assert set(state.opt_state["album"]) == {"momentum"}
+    _, sl = tpl.init_state(dataclasses.replace(tcfg, momentum_carrier="lazy"),
+                           "cpu")
+    for t in ("album", "artist"):
+        assert set(sl.opt_state[t]) == {"momentum", "last_step"}
+    last = sl.opt_state["album"]["last_step"]
+    assert last.dtype == torch.int32 and tuple(last.shape) == (128,)
+    assert not last.any()
     _, s0 = tpl.init_state(dataclasses.replace(tcfg, momentum=0.0), "cpu")
     assert s0.opt_state is None
     _, sd = tpl.init_state(dataclasses.replace(tcfg, sparse_updates=False),
