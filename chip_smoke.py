@@ -62,11 +62,24 @@ the result line:
                 quantizer against its numpy twin over the whole catalog,
                 overlap@500 of each mode against exact, B=8 latency and a
                 breakdown of each;
-  8. tool     - the port's scatter_attempt (shared-memory scatter,
+  8. modes    - the full-scan modes and the catalog lifecycle on the same
+                catalog: approx and int8+approx at B=8, k=500 (overlap@500
+                against exact at least 0.95, latency, breakdown, L, r and
+                kb; one block's select on the card against the CPU, with
+                planted ties); add_capacity 65,536 in the exact, approx,
+                fused and fused int8 modes, 8 adds of 1,024 rows, answers
+                equal to a fresh service on the grown catalog and no
+                buffer reallocated; a live fused server reloaded under
+                traffic to the perturbed catalog (no failed request); two
+                deploy cycles of full_scale_run (20 steps, then 2 x 10,
+                each reloaded into a live approx server); serving_bench at
+                2,262,292 x 64, k=500, batch 256 over every ported mode,
+                against its overlap floors;
+  9. tool     - the port's scatter_attempt (shared-memory scatter,
                 scatter_add, index_add_ at the album table and a half-size
                 one), then the shared-memory scatter timed at the album
                 table and with every id on one row;
-  9. lazy     - the lazy momentum carrier at the flagship's full width:
+  10. lazy    - the lazy momentum carrier at the flagship's full width:
                 20 float32 steps under the lazy and the dense carrier from
                 one init on the same batches and negatives, the lazy
                 tables flushed (settled_params) against the dense ones;
@@ -83,7 +96,7 @@ the result line:
                 past 2^31 elements) and scale_table at that width with
                 momentum 0.98.
 
-Each main-path phase (train, harness, serve, int8, tool, lazy) sets the launch
+Each main-path phase (train, harness, serve, int8, modes, tool, lazy) sets the launch
 counts to 0 just before it and reads them just after. A line gives the seconds each
 phase took. The second-to-last line is the kernel table as JSON, the last
 line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -1810,6 +1823,365 @@ def phase_int8(card: str, ctx: dict) -> dict:
     return out
 
 
+APPROX_FLOOR = 0.95           # approx modes' overlap@500 (reference's target)
+GROWTH_CAPACITY = 65_536      # add_capacity of the growth checks
+GROWTH_ADDS = 8               # adds of GROWTH_ROWS rows each
+GROWTH_ROWS = 1024
+GROWTH_MODES = (
+    ("exact", {}),
+    ("approx", {"approx": True}),
+    ("fused:bins=4096", {"fused": True}),
+    ("fused:bins=4096+int8", {"fused": True, "quantized": True}),
+)
+# serving_bench's overlap floors (PERF.md section 2); filtered is exact
+# over its eligible rows up to float32 summation order
+BENCH_FLOORS = {"exact": None, "approx": APPROX_FLOOR,
+                "fused": QUALITY_FLOOR, "fused_q8": INT8_FLOOR,
+                "fused_q8_r8": INT8_FLOOR, "quantized": INT8_FLOOR,
+                "quantized_approx": APPROX_FLOOR, "quantized_r8": INT8_FLOOR,
+                "filtered": QUALITY_FLOOR}
+BENCH_QUERIES = 512           # serving_bench --queries, cut from 2048
+
+
+def check_approx_select(card: str, items) -> dict:
+    """One flagship block's bf16 scores through approx_select_ids on the
+    card and on the CPU: identical ids, on the scores as they are, rounded
+    to a coarse grid (ties everywhere), and with planted ties (a whole bin
+    group equal: its first position must win; two bins of equal maxima:
+    the lower bin first)."""
+    import torch
+
+    from esrecsys_tpu_torch.retrieval import mips
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(8, items.shape[1], generator=gen, device="cuda")
+    s = mips.bf16_scores(q.to(torch.bfloat16), items[:262_144])
+    out = {}
+    for kb in (256, 223):
+        L, r = mips.approx_reduction_size(s.shape[1], kb, 0.95)
+        planted = s.clone()
+        top = float(s.max()) + 1.0
+        planted[:, 5::L] = top            # bin 5's whole group ties
+        planted[:, 9 + 3 * L] = top       # bin 9 ties bin 5, at row 3
+        cases = {"scores": s, "coarse": (s * 4).round() / 4,
+                 "planted": planted}
+        for name, case in cases.items():
+            on_card = mips.approx_select_ids(case, kb, 0.95)
+            on_cpu = mips.approx_select_ids(case.cpu(), kb, 0.95)
+            if not torch.equal(on_card.cpu(), on_cpu):
+                raise AssertionError(f"approx select kb={kb} {name}: the "
+                                     f"card's ids differ from the CPU's")
+            if name == "planted" and not (
+                    on_card[:, 0].eq(5).all() and on_card[:, 1].eq(
+                        9 + 3 * L).all()):
+                raise AssertionError(f"planted ties: {on_card[:, :2]}")
+        out[kb] = (L, r)
+    log(f"approx select on one block (8 x 262144 bf16 scores, float32 "
+        f"sums): the card's ids equal the CPU's for kb 256 and 223 (L, r "
+        f"{out[256]}, {out[223]}), on the scores, on a 0.25 grid and with "
+        f"planted ties (first position of a bin group, lower bin) [{card}]")
+    return out
+
+
+def growth_rows(vecs, rng, n: int):
+    """n rows near the catalog; a quarter scaled by 3 (they win the
+    queries made from them)."""
+    import numpy as np
+
+    rows = (vecs[rng.integers(0, len(vecs), n)]
+            + rng.normal(size=(n, vecs.shape[1])).astype(np.float32)
+            * 0.05 * np.abs(vecs).mean())
+    rows[: n // 4] *= 3.0
+    return rows.astype(np.float32)
+
+
+def check_growth(card: str, index, queries) -> dict:
+    """add_capacity in four modes: 8 adds of 1,024 rows written in place,
+    then the answers of a fresh service of the same mode on the grown
+    catalog (ids identical, scores within 1e-6), no buffer reallocated."""
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
+    from esrecsys_tpu_torch.serving.server import RetrievalService
+
+    rng = np.random.default_rng(11)
+    vecs = index.vectors
+    adds = [growth_rows(vecs, rng, GROWTH_ROWS) for _ in range(GROWTH_ADDS)]
+    new_ids = [[f"add{a}-{i}" for i in range(GROWTH_ROWS)]
+               for a in range(GROWTH_ADDS)]
+    grown_vecs = np.concatenate([vecs] + adds)
+    grown_ids = list(index.ids) + sum(new_ids, [])
+    # queries made from added rows that win, and the served queries
+    q = np.concatenate([adds[a][:4] for a in range(GROWTH_ADDS)]
+                       + [queries[:32]])
+    out = {}
+    for mode, kw in GROWTH_MODES:
+        svc = RetrievalService(
+            EmbeddingIndex(list(index.ids), vecs), max_k=500, max_batch=8,
+            add_capacity=GROWTH_CAPACITY, device="cuda", **kw)
+        bufs = {n: getattr(svc, n) for n in (
+            "_items", "_q_items", "_scales", "_items_packed",
+            "_fused_scales") if getattr(svc, n) is not None}
+        ptrs = {n: b.data_ptr() for n, b in bufs.items()}
+        times = []
+        for a in range(GROWTH_ADDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.add_items(new_ids[a], adds[a])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        got_ids, got_scores = svc.topk(q, k=500)
+        moved = [n for n, b in bufs.items()
+                 if getattr(svc, n).data_ptr() != ptrs[n]]
+        del svc, bufs
+        fresh = RetrievalService(EmbeddingIndex(grown_ids, grown_vecs),
+                                 max_k=500, max_batch=8, device="cuda", **kw)
+        want_ids, want_scores = fresh.topk(q, k=500)
+        del fresh
+        if answers_differ(got_ids, got_scores, want_ids, want_scores):
+            raise AssertionError(f"growth {mode}: answers differ from a "
+                                 f"fresh service on the grown catalog")
+        if moved:
+            raise AssertionError(f"growth {mode}: reallocated {moved}")
+        won = np.mean([got_ids[i][0] == new_ids[i // 4][i % 4]
+                       for i in range(4 * GROWTH_ADDS)])
+        if won < 0.5:
+            raise AssertionError(f"growth {mode}: added rows won only "
+                                 f"{won:.2f} of their queries")
+        times.sort()
+        out[mode] = {"ms_per_add_median": times[len(times) // 2],
+                     "ms_per_add": times, "own_row_first": float(won)}
+        log(f"growth {mode}: {GROWTH_ADDS} adds of {GROWTH_ROWS} rows into "
+            f"add_capacity {GROWTH_CAPACITY}, {times[len(times) // 2]:.2f} "
+            f"ms per add (median, host clock, min {times[0]:.2f}, max "
+            f"{times[-1]:.2f}); {len(q)} queries equal a fresh service on "
+            f"the grown {len(grown_ids)} items (ids identical, scores "
+            f"within 1e-6); buffers {sorted(ptrs)} not reallocated; added "
+            f"rows first for {won:.2f} of their own queries [{card}]")
+    return out
+
+
+def answers_differ(got_ids, got_scores, want_ids, want_scores) -> bool:
+    import numpy as np
+
+    return not (np.array_equal(got_ids, want_ids) and np.allclose(
+        got_scores, want_scores, rtol=0, atol=1e-6))
+
+
+def check_reload(card: str, index, queries, work: str) -> dict:
+    """A live fused server reloaded under traffic to the catalog perturbed
+    and saved as npz: no failed request, then the answers of a fresh
+    service on the new index."""
+    import numpy as np
+
+    from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
+    from esrecsys_tpu_torch.serving.server import RetrievalService, serve
+
+    rng = np.random.default_rng(12)
+    vecs = index.vectors
+    path = os.path.join(work, "perturbed.npz")
+    EmbeddingIndex(index.ids, vecs + rng.normal(size=vecs.shape).astype(
+        np.float32) * 0.01 * np.abs(vecs).mean()).save(path)
+    httpd = serve(index, port=0, max_k=500, max_batch=8, fused=True,
+                  device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    stop, errors, sent = threading.Event(), [], [0]
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            try:
+                http_json(f"{url}/v1/topk", {
+                    "vector": queries[i % len(queries)].tolist(), "k": 500})
+                sent[0] += 1
+            except Exception as e:  # every failure is counted
+                errors.append(repr(e))
+            i += 1
+
+    clients = [threading.Thread(target=client) for _ in range(2)]
+    try:
+        for c in clients:
+            c.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        rep = http_json(f"{url}/admin/reload", {"index": path})
+        wall = time.perf_counter() - t0
+        time.sleep(1.0)
+        stop.set()
+        for c in clients:
+            c.join(timeout=60)
+        stats = http_json(f"{url}/statsz")
+        live = httpd.service.topk(queries, k=500)
+        one = http_json(f"{url}/v1/topk",
+                        {"vector": queries[0].tolist(), "k": 500})
+    finally:
+        stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    fresh = RetrievalService(EmbeddingIndex.load(path), max_k=500,
+                             max_batch=8, fused=True, device="cuda")
+    want = fresh.topk(queries, k=500)
+    del fresh
+    if errors:
+        raise AssertionError(f"reload: {len(errors)} failed requests, "
+                             f"first {errors[0]}")
+    if rep.get("status") != "ok" or stats["reloads"] != 1:
+        raise AssertionError(f"reload: {rep}, statsz {stats}")
+    if answers_differ(live[0], live[1], want[0], want[1]) or \
+            one["ids"] != list(want[0][0]):
+        raise AssertionError("reload: answers differ from a fresh service "
+                             "on the new index")
+    log(f"hot reload of a live fused server to the perturbed catalog "
+        f"({len(vecs)} items, npz): reload_seconds "
+        f"{rep['reload_seconds']:.3f} (server), {wall:.3f} s (client); "
+        f"{sent[0]} requests from 2 client threads during and 1 s after, "
+        f"0 failed; statsz reloads {stats['reloads']}; the answers equal a "
+        f"fresh fused service on the new index [{card}]")
+    return {"reload_seconds": rep["reload_seconds"], "client_s": wall,
+            "requests": sent[0], "failed": len(errors),
+            "reloads": stats["reloads"]}
+
+
+def check_deploy(card: str, work: str) -> dict:
+    """full_scale_run's deploy cycles at full width: 20 steps, then two
+    cycles of 10 steps, each exported, embedded, saved and reloaded into a
+    live approx server."""
+    from esrecsys_tpu_torch.tools import full_scale_run as fsr
+
+    out_dir = os.path.join(work, "deploy")
+    res = fsr.main(["--out_dir", out_dir, "--train", "--steps", "20",
+                    "--deploy_cycles", "2", "--cycle_steps", "10",
+                    "--deploy_serve_mode", "approx",
+                    "--deploy_quality_queries", "64"])
+    cycles = res["deploy_cycles"]
+    if len(cycles) != 2 or not all(c["probe_hit"] for c in cycles) or \
+            res["deploy_final_step"] != 40:
+        raise AssertionError(f"deploy cycles: {res}")
+    for c in cycles:
+        if c["overlap_at_k"] < APPROX_FLOOR:
+            raise AssertionError(f"deploy cycle overlap: {c}")
+        log(f"deploy cycle {c['cycle']} (approx server, 10 steps of the "
+            f"flagship at full width): retrain {c['retrain_s']:.3f} s, "
+            f"embed and save {c['embed_and_save_s']:.3f} s, reload "
+            f"{c['reload_s']:.3f} s, artifact to live {c['artifact_to_live_s']:.3f} s, probe hit "
+            f"{c['probe_hit']}, overlap@100 {c['overlap_at_k']:.4f} over 64 "
+            f"queries [{card}]")
+    return {"cycles": cycles, "server_startup_s":
+            res["deploy_server_startup_s"]}
+
+
+def check_bench(card: str) -> dict:
+    from esrecsys_tpu_torch.tools import serving_bench as sb
+
+    res = sb.main(["--items", "2262292", "--dim", "64", "--k", "500",
+                   "--batch", "256", "--reps", "3",
+                   "--queries", str(BENCH_QUERIES),
+                   "--modes", ",".join(BENCH_FLOORS), "--out", ""])
+    for r in res["results"]:
+        floor = BENCH_FLOORS[r["mode"]]
+        if floor is not None and not r["overlap_vs_exact"] >= floor:
+            raise AssertionError(f"serving_bench {r} under {floor}")
+    log("serving_bench --items 2262292 --dim 64 --k 500 --batch 256 --reps "
+        f"3 --queries {BENCH_QUERIES} (cut from 2048): " + ", ".join(
+            f"{r['mode']} {r['queries_per_s']} q/s overlap "
+            f"{r['overlap_vs_exact']} {r['resident_bytes_per_item']} B/item "
+            f"setup {r['setup_s']} s" for r in res["results"])
+        + f" [{card}]")
+    return res
+
+
+def phase_modes(card: str, ctx: dict, work: str) -> dict:
+    """The full-scan serving modes and the catalog lifecycle on the
+    trained catalog: approx and int8+approx, growth, a reload under
+    traffic, the deploy cycles and serving_bench."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_scan as fs
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.retrieval.mips import (OVERSAMPLE,
+                                                   approx_reduction_size)
+    from esrecsys_tpu_torch.serving.server import RetrievalService
+
+    index, exact, queries = ctx["index"], ctx["exact"], ctx["queries"]
+    counters = {"fused_scan": fs.LAUNCHES, "fused_scan_int8":
+                fs.LAUNCHES_INT8, "gather_pool": gp.LAUNCHES,
+                "scatter_add": sa.LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    t_phase = time.perf_counter()
+    out = {"approx": {}}
+    # ---- 1. approx and int8+approx at B=8, k=500
+    M = len(index)
+    nblk = -(-M // 262_144)
+    for mode, kw, kb in (
+            ("approx", {"approx": True}, max(-(-500 // nblk), 256)),
+            ("int8+approx", {"approx": True, "quantized": True},
+             -(-OVERSAMPLE * 500 // nblk))):
+        t0 = time.perf_counter()
+        svc = RetrievalService(index, max_k=500, max_batch=8, device="cuda",
+                               **kw)
+        build_s = time.perf_counter() - t0
+        ids, scores = svc.topk(queries, k=500)
+        if (svc.mode != mode or scores.shape != (len(queries), 500)
+                or not np.isfinite(scores).all()):
+            raise AssertionError(f"{mode}: {svc.mode}, {scores.shape}")
+        overlap = overlap_at_k(exact._items, queries, ids, ctx["exact_ids"])
+        q8 = queries[:8]
+        ms = host_ms(lambda: svc.topk(q8, k=500), 20)
+        wall, busy, top = device_breakdown(lambda: svc.topk(q8, k=500), 20)
+        L, r = approx_reduction_size(262_144, kb, 0.95)
+        row = {"overlap": overlap, "topk_ms": ms, "L": L, "r": r, "kb": kb,
+               "build_s": build_s, "profiled_ms": wall, "busy_ms": busy,
+               "idle_share": None if busy is None else 1 - busy / wall,
+               "bytes_per_item": svc.resident_bytes_per_item}
+        split = ("device time not measured (no device rows in the trace)"
+                 if busy is None else
+                 f"device busy {busy:.3f} ms (idle share "
+                 f"{1 - busy / wall:.2f}); largest: " + ", ".join(
+                     f"{k[:40]} {v * 1e3:.1f} us" for k, v in top[:4]))
+        log(f"serve {mode}: L {L}, r {r} (bins of {1 << r}), kb {kb} of "
+            f"{nblk} blocks; built in {build_s:.2f} s; overlap@500 vs exact "
+            f"{overlap:.4f} over {len(queries)} queries (floor "
+            f"{APPROX_FLOOR}); {svc.resident_bytes_per_item} resident bytes "
+            f"per item; B=8 k=500 topk {ms:.3f} ms (median of 20, host "
+            f"clock); breakdown {wall:.3f} ms per call under the profiler, "
+            f"{split} [{card}]")
+        if overlap < APPROX_FLOOR:
+            raise AssertionError(f"{mode} overlap@500 {overlap}")
+        out["approx"][mode] = row
+        del svc
+    out["select"] = check_approx_select(card, exact._items)
+    # ---- 2. growth, 3. reload under traffic
+    out["growth"] = check_growth(card, index, queries)
+    gc.collect()
+    out["reload"] = check_reload(card, index, queries, work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- 4. the deploy cycles, 5. serving_bench
+    out["deploy"] = check_deploy(card, work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bench"] = check_bench(card)["results"]
+    torch.cuda.synchronize()
+    out["launches"] = {n: c.count for n, c in counters.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    if min(out["launches"].values()) <= 0:
+        raise AssertionError(f"modes phase launches: {out['launches']}")
+    log(f"modes path launches: {out['launches']} (growth and reload: "
+        f"fused_scan, fused_scan_int8; deploy cycles: gather_pool, "
+        f"scatter_add; serving_bench: both fused scans) [{card}]")
+    log(json.dumps({"modes": out}, default=float))
+    return out
+
+
 def phase_tool(card: str) -> dict:
     """The port's scatter_attempt tool, then smem_scatter timed at the
     album table with the tool's inputs and with every id on one row."""
@@ -2282,6 +2654,7 @@ def main() -> int:
                   train_res["device_feed_examples_per_s"])
             main_res, ctx = timed("serve", phase_main, card, work)
             int8_res = timed("int8", phase_int8, card, ctx)
+            modes_res = timed("modes", phase_modes, card, ctx, work)
             del ctx
         tool_res = timed("tool", phase_tool, card)
         lazy_res = timed("lazy", phase_lazy, card, train_res)
@@ -2297,7 +2670,8 @@ def main() -> int:
         "name": "fused_scan", "route": "cuda",
         "source": "esrecsys_tpu_torch/csrc/fused_scan.cu",
         "replaces": "esrecsys_tpu/retrieval/fused.py:191",
-        "launches": main_res["launches"], "max_abs_err": max_err,
+        "launches": main_res["launches"]
+        + modes_res["launches"]["fused_scan"], "max_abs_err": max_err,
         "ms": main_res["ms"], "plain_ms": main_res["plain_ms"],
         "bound_ms": main_res["bound_ms"], "bound_by": main_res["bound_by"],
         "library_ms": None}]
@@ -2317,7 +2691,8 @@ def main() -> int:
         "name": "fused_scan_int8", "route": "cuda",
         "source": "esrecsys_tpu_torch/csrc/fused_scan_int8.cu",
         "replaces": "esrecsys_tpu/retrieval/fused.py:212",
-        "launches": int8_res["launches"], "max_abs_err": i8_err,
+        "launches": int8_res["launches"]
+        + modes_res["launches"]["fused_scan_int8"], "max_abs_err": i8_err,
         "ms": int8_res["ms"], "plain_ms": int8_res["plain_ms"],
         "bound_ms": int8_res["bound_ms"], "bound_by": int8_res["bound_by"],
         "library_ms": None})

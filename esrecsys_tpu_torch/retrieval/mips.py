@@ -1,8 +1,9 @@
 """Maximum-inner-product search (counterpart of
 ``esrecsys_tpu/retrieval/mips.py``: the exact ``topk_over_matrix``, the
-streaming ``chunked_topk`` / ``chunked_grouped_topk`` of the eval, and the
+streaming ``chunked_topk`` / ``chunked_grouped_topk`` of the eval, the
 int8 scan of quantized serving, ``quantize_rows`` and
-``quantized_topk_over_matrix``).
+``quantized_topk_over_matrix``, and the approx scan
+``approx_topk_over_matrix`` with its two-phase skeleton).
 
 The reference streams the catalog with a group-max prefilter because
 ``lax.top_k`` costs about a nanosecond per element on the TPU. The port
@@ -11,10 +12,22 @@ both return the exact top-k by float32 score. Only the order among EXACTLY
 equal scores can differ: the port orders equal scores by ascending item
 id, as ``lax.top_k`` does, while the reference's prefilter ranks them by
 group. This path is the quality yardstick of every approximate mode.
+
+The approx select is the TPU's ``lax.approx_max_k``, an XLA operation (the
+PartialReduce), not a Pallas kernel. The port computes its function with
+two PyTorch reductions on either device (:func:`approx_select_ids`): bins
+``j mod L`` of 2^r positions, L and r from XLA's own formula
+(:func:`approx_reduction_size`), each bin's maximum, then the top of the
+bin maxima. Two things cannot be held against the JAX package: off the
+TPU (on the CPU and on a GPU) its XLA computes ``approx_max_k`` exactly,
+and the TPU's order of positions inside a bin group cannot be observed
+from here. So the tests hold the port against the JAX package where r is
+0 and against a numpy model of the bins elsewhere.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -255,6 +268,175 @@ def int8_dot(qq: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(qq.contiguous(), codes.T)[:B, :n]
 
 
+
+
+def approx_reduction_size(n: int, k: int, recall_target: float
+                          ) -> Tuple[int, int]:
+    """(L, r) of the TPU's ``approx_max_k`` over the last axis of a rank-2
+    operand of width ``n``: the PartialReduce folds the width to L bins of
+    2^r positions each, and r == 0 means an exact top-k. A copy of XLA's
+    ``ApproxTopKReductionOutputSize`` (``xla/client/lib/approx_topk_shape.cc``,
+    ``aggregate_to_topk=False``, no input size override); ``recall_target``
+    enters as a float32, as XLA takes it."""
+    rt = float(np.float32(recall_target))
+    if not 0.0 < rt <= 1.0:
+        raise ValueError(f"recall_target must lie in (0, 1], got "
+                         f"{recall_target}")
+    tiling = 128  # the lane tiling of a rank-2 operand
+    if n <= tiling:
+        return n, 0
+    cap = (-(-n // tiling) - 1).bit_length()   # log2_ceil(ceil(n / 128))
+    if k == 1:
+        log2 = cap
+    else:
+        # the fewest bins whose expected recall reaches the target
+        m = (1.0 - k) / math.log(rt) if rt < 1.0 else float(n)
+        m = min(max(int(m), tiling), n)
+        log2 = min((n // m).bit_length() - 1, cap)
+        if log2 == 0:
+            return n, 0
+    return pad_to_multiple(-(-n // (1 << log2)), tiling), log2
+
+
+def approx_select_ids(scores: torch.Tensor, kb: int,
+                      recall_target: float = 0.95) -> torch.Tensor:
+    """Positions of ``approx_max_k(scores, kb, recall_target)`` over the
+    last axis of (B, n) float32 scores, as the TPU's PartialReduce with
+    ``aggregate_to_topk`` selects them: position j falls in bin ``j mod
+    L`` (the row padded with -inf to ``L * 2^r``), each bin keeps its
+    maximum (the first position among equal maxima), and the top
+    ``min(kb, L)`` bin maxima are kept, equal ones by lower bin. With
+    ``r == 0`` it is the exact top ``kb``, ties to the lower position.
+    One ``max`` over a ``(B, 2^r, L)`` view and one top-k over L, on
+    either device."""
+    n = scores.shape[-1]
+    L, r = approx_reduction_size(n, kb, recall_target)
+    if r == 0:
+        return top_ids_lower_index_first(scores, min(kb, n))
+    groups = 1 << r
+    if L * groups > n:
+        scores = torch.nn.functional.pad(scores, (0, L * groups - n),
+                                         value=NEG_INF)
+    bins = scores.reshape(scores.shape[:-1] + (groups, L))
+    bin_max, row = bins.max(dim=-2)            # first row among equal maxima
+    pos = row * L + torch.arange(L, device=scores.device)
+    return torch.gather(pos, -1, top_ids_lower_index_first(bin_max,
+                                                           min(kb, L)))
+
+
+def bf16_scores(qb: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(B, n) float32 sums of ``qb`` (B, D) bf16 against ``rows`` (n, D)
+    rounded to bf16: the reference's einsum with
+    ``preferred_element_type=float32``. A bf16 product is exact in
+    float32, so only the order of the float32 sums differs between the
+    card (``torch.mm`` with a float32 output) and the CPU (both sides
+    widened to float32). Each call makes a bf16 copy of ``rows``."""
+    rb = rows.to(torch.bfloat16)
+    if rb.is_cuda:
+        return torch.mm(qb, rb.T, out_dtype=torch.float32)
+    return qb.float() @ rb.float().T
+
+
+def _pad_block(s: torch.Tensor, block: int) -> torch.Tensor:
+    """A ragged last block's (B, w) scores, padded with -inf to the block
+    width (the reference pads the catalog instead)."""
+    short = block - s.shape[-1]
+    return s if short <= 0 else torch.nn.functional.pad(
+        s, (0, short), value=NEG_INF)
+
+
+def _streamed_candidate_topk(
+    score_block_fn: Callable[[int], torch.Tensor],
+    queries: torch.Tensor,        # (B, D)
+    rescore_items: torch.Tensor,  # (>= num_items, D) float32, or int8 rows
+    num_items: int,
+    k: int,
+    block: int,
+    nblk: int,
+    kb: int,
+    select: str,
+    recall_target: float,
+    rescore_scales: Optional[torch.Tensor] = None,  # (>= num_items,)
+    valid_count: Count = None,
+    item_mask: Optional[torch.Tensor] = None,       # (>= num_items,) bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-phase skeleton of the approx and int8 scans (the
+    reference's ``_streamed_candidate_topk``).
+
+    Phase 1: ``score_block_fn(b)`` gives block b's (B, block) scores (the
+    item mask folded in, a ragged last block padded with -inf); rows at or
+    past the valid bound score -inf before the select, which keeps ``kb``
+    positions per block (:func:`approx_select_ids` for ``"approx"``, the
+    exact top ``kb`` otherwise). Phase 2 rescores all candidates in float32
+    as an elementwise multiply-sum (no TF32 setting touches it), from
+    ``rescore_items``, or from int8 rows dequantized with
+    ``rescore_scales``; the bound and the mask guard the rescore too, so a
+    masked candidate cannot re-enter with its real dot. Ties go to the
+    lower index, -inf slots get id 0, and the result pads to k."""
+    bound = valid_bound(num_items, valid_count)
+    cands = []
+    for b in range(nblk):
+        s = score_block_fn(b)
+        start = b * block
+        if start + block > bound:  # the block reaches past the bound
+            s = s.masked_fill(start + torch.arange(block, device=s.device)
+                              >= bound, NEG_INF)
+        if select == "approx":
+            cands.append(approx_select_ids(s, kb, recall_target) + start)
+        else:
+            cands.append(top_ids_lower_index_first(s, kb) + start)
+    cand = torch.cat(cands, dim=-1)                      # (B, nblk * kb)
+    safe = cand.clamp(max=num_items - 1)
+    rows = rescore_items[safe]                           # (B, n, D)
+    if rescore_scales is not None:
+        rows = rows.float() * rescore_scales[safe][..., None]
+    cs = (rows * queries.float()[:, None, :]).sum(-1)
+    ok = cand < bound
+    if item_mask is not None:
+        ok = ok & item_mask[safe]
+    cs = torch.where(ok, cs, NEG_INF)
+    vals, sel = topk_lower_index_first(cs, min(k, cand.shape[-1]))
+    return pad_topk(vals, torch.gather(cand, -1, sel), k)
+
+
+def approx_topk_over_matrix(
+    queries: torch.Tensor,   # (B, D) float32
+    items: torch.Tensor,     # (M, D) float32
+    k: int,
+    block_size: int = 262_144,
+    recall_target: float = 0.95,
+    per_block_k: Optional[int] = None,
+    valid_count: Count = None,
+    item_mask: Optional[torch.Tensor] = None,   # (M,) bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate streaming top-k: bf16 block scores (float32 sums), the
+    TPU's ``approx_max_k`` selection per block (:func:`approx_select_ids`),
+    then a float32 rescore of every candidate: (values (B, k) float32, ids
+    (B, k) int64), sorted descending, ties by ascending id.
+
+    ``per_block_k`` (default ``max(ceil(k / nblk), min(k, 256))``, capped
+    at the block) candidates are kept per block; a catalog whose top k
+    crowds into one block wants ``per_block_k=k``. Rows at or past
+    ``valid_count`` and rows where ``item_mask`` is False never return."""
+    num_items = items.shape[0]
+    block = min(block_size, pad_to_multiple(num_items, 128))
+    nblk = -(-num_items // block)
+    kb = min(per_block_k or max(-(-k // nblk), min(k, 256)), block)
+    qb = queries.to(torch.bfloat16)
+
+    def score_block(b):
+        start, stop = b * block, min((b + 1) * block, num_items)
+        s = bf16_scores(qb, items[start:stop])
+        if item_mask is not None:
+            s = s.masked_fill(~item_mask[start:stop], NEG_INF)
+        return _pad_block(s, block)
+
+    return _streamed_candidate_topk(
+        score_block, queries, items, num_items, k, block, nblk, kb,
+        select="approx", recall_target=recall_target,
+        valid_count=valid_count, item_mask=item_mask)
+
+
 def quantized_topk_over_matrix(
     queries: torch.Tensor,        # (B, D) float
     q_items: torch.Tensor,        # (M, D) int8 (quantize_rows output)
@@ -263,6 +445,7 @@ def quantized_topk_over_matrix(
     k: int,
     block_size: int = 262_144,
     select: str = "exact",
+    recall_target: float = 0.95,
     rescore_scales: Optional[torch.Tensor] = None,  # (M,): int8 rescore
     valid_count: Count = None,
     item_mask: Optional[torch.Tensor] = None,       # (M,) bool
@@ -273,50 +456,30 @@ def quantized_topk_over_matrix(
     Phase 1: the query is quantized and its scale dropped (a positive
     constant per query cannot change that query's ranking); each block's
     scores are the exact int32 dot of the int8 codes times the per-item
-    float32 scale, rows at or past the valid bound and rows the mask
-    excludes at -inf before the block's top-``kb`` (ties to the lower
-    index). About ``OVERSAMPLE * k`` candidates are kept in all; block and
-    ``kb`` are the reference's. Phase 2 rescores them against the
-    unquantized query in float32: from ``rescore_items`` (float32), or,
-    with ``rescore_scales``, from the int8 rows dequantized (no float32
-    catalog anywhere), the mask guarding the rescore so a masked candidate
-    cannot re-enter with its real dot; ids of -inf slots are 0.
-    ``select="approx"`` is the reference's ``approx_max_k`` selection and
-    is not ported yet."""
-    if select == "approx":
-        raise NotImplementedError(
-            "select='approx' (approx_max_k candidate selection) is not "
-            "ported yet; the port selects exactly")
-    if select != "exact":
+    float32 scale. About ``OVERSAMPLE * k`` candidates are kept in all,
+    ``kb = min(block, ceil(OVERSAMPLE * k / nblk))`` a block, by the exact
+    top ``kb`` (``select="exact"``) or the ``approx_max_k`` selection
+    (``select="approx"``, :func:`approx_select_ids`). Phase 2 rescores
+    them against the unquantized query in float32, from ``rescore_items``
+    (float32), or, with ``rescore_scales``, from the int8 rows dequantized
+    (no float32 catalog anywhere); see :func:`_streamed_candidate_topk`."""
+    if select not in ("exact", "approx"):
         raise ValueError(f"select must be 'exact' or 'approx', got {select!r}")
     num_items = q_items.shape[0]
     block = min(block_size, pad_to_multiple(num_items, 128))
     nblk = -(-num_items // block)
     kb = min(block, max(-(-OVERSAMPLE * k // nblk), 1))
-    bound = valid_bound(num_items, valid_count)
     qq, _ = quantize_rows(queries)
-    cands = []
-    for b in range(nblk):
+
+    def score_block(b):
         start, stop = b * block, min((b + 1) * block, num_items)
         s = int8_dot(qq, q_items[start:stop]).float() * item_scales[start:stop]
-        ok = start + torch.arange(stop - start, device=s.device) < bound
         if item_mask is not None:
-            ok = ok & item_mask[start:stop]
-        s = torch.where(ok, s, NEG_INF)
-        if stop - start < block:  # the reference pads the last block
-            s = torch.nn.functional.pad(s, (0, block - (stop - start)),
-                                        value=NEG_INF)
-        cands.append(top_ids_lower_index_first(s, kb) + start)
-    cand = torch.cat(cands, dim=-1)                      # (B, nblk * kb)
-    safe = cand.clamp(max=num_items - 1)
-    rows = rescore_items[safe]                           # (B, n, D)
-    if rescore_scales is not None:
-        rows = rows.float() * rescore_scales[safe][..., None]
-    # an elementwise float32 multiply-sum: no TF32 setting touches it
-    cs = (rows * queries.float()[:, None, :]).sum(-1)
-    ok = cand < bound
-    if item_mask is not None:
-        ok = ok & item_mask[safe]
-    cs = torch.where(ok, cs, NEG_INF)
-    vals, sel = topk_lower_index_first(cs, min(k, nblk * kb))
-    return pad_topk(vals, torch.gather(cand, -1, sel), k)
+            s = s.masked_fill(~item_mask[start:stop], NEG_INF)
+        return _pad_block(s, block)
+
+    return _streamed_candidate_topk(
+        score_block, queries, rescore_items, num_items, k, block, nblk, kb,
+        select=select, recall_target=recall_target,
+        rescore_scales=rescore_scales, valid_count=valid_count,
+        item_mask=item_mask)

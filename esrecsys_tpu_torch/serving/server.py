@@ -8,22 +8,31 @@
     int8 scan ``mips.quantized_topk_over_matrix``, or with ``fused`` the
     int8 kernel) and rescores the candidates in float32; ``rescore_int8``
     rescores from the int8 rows too, so no float32 catalog is on the
-    device at all.
+    device at all. ``approx=True`` selects each block's candidates as the
+    TPU's ``approx_max_k`` does (``mips.approx_topk_over_matrix``; with
+    ``quantized``, over the int8 scores). ``add_capacity=N`` preallocates
+    N more rows in every device buffer, which ``add_items`` fills in place.
   * ``QueryBatcher`` coalesces concurrent single queries into one call.
   * ``serve`` returns a stdlib ``ThreadingHTTPServer`` exposing:
       GET  /healthz            -> {"status": "ok", "items": N, ...}
       GET  /statsz             -> {"mode", "queries", "device_calls",
-                                   "queries_per_dispatch", "latency_ms", ...}
+                                   "queries_per_dispatch", "reloads",
+                                   "latency_ms", ...}
       POST /v1/topk            -> body {"vector": [...] | "id": "..." |
                                    "vectors": [[...], ...], "k": 10,
                                    "exclude": [...], "filter": name}
                                -> {"ids": [...], "scores": [...]}
       POST /admin/set_filter   -> body {"name": ..., "ids": [...]}
+      POST /admin/add_items    -> body {"ids": [...], "vectors": [[...]]}:
+                                  catalog growth into --add_capacity rows
+      POST /admin/reload       -> body {"index": "path.npz"} (optional:
+                                  the serving path by default), "aux":
+                                  "rebuild" | "reuse"; a new service is
+                                  built while the old one answers, then
+                                  swapped in (RetrievalHTTPServer)
 
-Not ported yet (construction raises ``NotImplementedError``; the HTTP
-routes answer 501): the approx (also with quantized), IVF, PQ and
-catalog-sharded modes, ``add_capacity`` with ``/admin/add_items``,
-``/admin/reload``, and query encoders.
+Not ported yet (construction raises ``NotImplementedError`` naming the
+option): the IVF, PQ and catalog-sharded modes, and query encoders.
 """
 
 from __future__ import annotations
@@ -46,27 +55,34 @@ from esrecsys_tpu_torch.retrieval.fused import (binned_topk_over_matrix,
                                                 pack_catalog_codes, pad_mask,
                                                 validate_fused_bins)
 from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
-from esrecsys_tpu_torch.retrieval.mips import (quantize_rows,
+from esrecsys_tpu_torch.retrieval.mips import (approx_topk_over_matrix,
+                                               quantize_rows,
                                                quantize_rows_np,
                                                quantized_topk_over_matrix,
                                                topk_over_matrix)
 
 log = logging.getLogger(__name__)
 
-# the reference's serving options that have no port yet
-UNPORTED_OPTIONS = ("approx", "ivf_clusters", "ivf_index_path",
-                    "pq_subspaces", "pq_index_path", "n_model_shards",
-                    "add_capacity", "encoders")
+# the reference's serving options that have no port yet: the modes they
+# select, and the knobs that only tune those modes (inert without them,
+# as in the reference)
+UNPORTED_OPTIONS = ("ivf_clusters", "ivf_index_path", "pq_subspaces",
+                    "pq_index_path", "n_model_shards", "encoders")
+UNPORTED_MODIFIERS = ("nprobe", "ivf_iters", "ivf_max_cell",
+                      "build_train_sample", "pq_codes", "pq_iters",
+                      "pq_oversample", "pq_rotate", "pq_anisotropic")
 
 
 def _reject_unported(options: dict) -> None:
-    for name, value in options.items():
-        if name not in UNPORTED_OPTIONS:
+    for name in options:
+        if name not in UNPORTED_OPTIONS + UNPORTED_MODIFIERS:
             raise TypeError(f"unexpected keyword argument {name!r}")
-        if value:
+    for name in UNPORTED_OPTIONS:
+        if options.get(name):
             raise NotImplementedError(
                 f"serving option {name!r} is not ported yet; the port "
-                "serves the exact, fused and int8 (quantized) modes")
+                "serves the exact, approx, fused and int8 (quantized) "
+                "modes")
 
 
 def _finite_row(ids_row, scores_row):
@@ -88,12 +104,20 @@ class RetrievalService:
     Queries run in chunks of ``max_batch`` and return the top ``max_k``,
     trimmed to the requested k. The constructor answers one warm-up batch,
     so the kernel build and first launch happen before the first request.
+
+    With ``add_capacity=N`` every device buffer (the float32 rows, the int8
+    rows and scales, the fused scan copy and its scales, the filter masks)
+    is allocated at ``len(index) + N`` rows, the tail zero, and every scan
+    takes the live row count as its valid bound. :meth:`add_items` then
+    writes new rows in place; no buffer is reallocated.
     """
 
     def __init__(self, index: EmbeddingIndex, max_k: int = 100,
                  max_batch: int = 8, block_size: int = 262_144,
+                 approx: bool = False, recall_target: float = 0.95,
                  fused: bool = False, fused_bins: int = 4096,
                  quantized: bool = False, rescore_int8: bool = False,
+                 add_capacity: int = 0,
                  filters: Optional[Dict[str, Sequence[str]]] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  **unported):
@@ -102,6 +126,10 @@ class RetrievalService:
                 "sharded fused serving scans bf16: drop quantized or "
                 "n_model_shards (int8 scan copies are single-shard)")
         _reject_unported(unported)
+        if fused and approx:
+            raise ValueError(
+                "fused is a complete scan+select path: it does not "
+                "compose with approx")
         # rescore_int8 keeps no float32 catalog on the device, so the scan
         # must not read one: the int8 modes are the ported scans that don't
         if rescore_int8 and not quantized:
@@ -117,7 +145,16 @@ class RetrievalService:
         self.device_calls = 0  # query dispatches (coalescing stat)
         self.queries = 0       # query vectors answered
         self._dim = int(index.vectors.shape[1])
-        self.capacity = len(index)
+        self.add_capacity = int(add_capacity)
+        self._n_valid = len(index)
+        self.capacity = self._n_valid + self.add_capacity
+        if self.add_capacity:
+            # a catalog that starts small and grows is capped at its
+            # capacity, not its launch size; topk clamps to the live size
+            self.max_k = min(max_k, self.capacity)
+            index.reserve(self.capacity)
+        self.approx = approx
+        self.recall_target = recall_target
         self.fused = fused
         self.quantized = quantized
         self.rescore_int8 = rescore_int8
@@ -131,28 +168,32 @@ class RetrievalService:
                                 use_scales=quantized, device=self.device)
         else:
             self._fused_bins = None
-        # (M, D) float32 rows, resident unless rescore_int8 drops them
+        # (capacity, D) float32 rows, resident unless rescore_int8 drops them
         self._items = (None if rescore_int8 else
-                       torch.from_numpy(index.vectors).to(self.device))
+                       self._at_capacity(torch.from_numpy(index.vectors)))
         # int8 rows and scales: quantized on the device from the resident
         # float32 rows, or on the host (the bit-identical numpy twin) under
-        # rescore_int8, so that no float32 catalog ever reaches the device
+        # rescore_int8, so that no float32 catalog ever reaches the device;
+        # the capacity tail holds code 0 and scale 0
         self._q_items = self._scales = None
         if quantized and self._items is not None:
-            self._q_items, self._scales = quantize_rows(self._items)
+            q8, sc = quantize_rows(self._items[:self._n_valid])
+            self._q_items, self._scales = (self._at_capacity(q8),
+                                           self._at_capacity(sc))
         elif quantized:
             q8, sc = quantize_rows_np(index.vectors)
-            self._q_items = torch.from_numpy(q8).to(self.device)
-            self._scales = torch.from_numpy(sc).to(self.device)
-        # the scan copy, built once on the device: transposed bf16, or the
-        # transposed int8 codes with a flat scale per item (quantized)
+            self._q_items = self._at_capacity(torch.from_numpy(q8))
+            self._scales = self._at_capacity(torch.from_numpy(sc))
+        # the scan copy, built once on the device at capacity: transposed
+        # bf16, or the transposed int8 codes with a flat scale per item
         self._items_packed = self._fused_scales = None
         if fused and quantized:
             self._items_packed, self._fused_scales = pack_catalog_codes(
                 self._q_items, self._scales, self._fused_bins)
         elif fused:
             self._items_packed = pack_catalog(self._items, self._fused_bins)
-        self._ids = np.asarray(index.ids, dtype=object)
+        self._ids = np.empty(self.capacity, dtype=object)
+        self._ids[:self._n_valid] = index.ids
         self._filters_enabled = filters is not None
         self._filter_masks: Dict[str, torch.Tensor] = {}
         for name, id_list in (filters or {}).items():
@@ -166,6 +207,15 @@ class RetrievalService:
         warm = torch.zeros((max_batch, self._dim), device=self.device)
         self._query(warm)[0].cpu()
 
+    def _at_capacity(self, rows: torch.Tensor) -> torch.Tensor:
+        """``rows`` (n, ...) on the device in a buffer of ``capacity``
+        rows, the tail zero (a copy even on the CPU, so that no buffer
+        aliases the host index)."""
+        out = torch.zeros((self.capacity,) + tuple(rows.shape[1:]),
+                          dtype=rows.dtype, device=self.device)
+        out[:rows.shape[0]].copy_(rows)
+        return out
+
     def _query(self, q: torch.Tensor, fmask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         # under rescore_int8 the candidates are rescored from the int8
@@ -173,20 +223,32 @@ class RetrievalService:
         r8 = self.rescore_int8
         rescore = self._q_items if r8 else self._items
         rescore_scales = self._scales if r8 else None
+        valid = self._n_valid  # rows past it are growth capacity
         if self.fused:
             return binned_topk_over_matrix(
                 q, rescore, self.max_k, num_bins=self._fused_bins,
-                item_mask=fmask, items_packed=self._items_packed,
+                valid_count=valid, item_mask=fmask,
+                items_packed=self._items_packed,
                 item_scales=self._fused_scales,
                 rescore_scales=rescore_scales)
+        # the approx and int8 scans take large blocks: few scan
+        # iterations, few candidates to rescore
+        big = max(self.block_size, 262_144)
         if self.quantized:
-            # large blocks: few scan iterations, few candidates to rescore
             return quantized_topk_over_matrix(
                 q, self._q_items, self._scales, rescore, self.max_k,
-                block_size=max(self.block_size, 262_144),
-                rescore_scales=rescore_scales, item_mask=fmask)
+                block_size=big,
+                select="approx" if self.approx else "exact",
+                recall_target=self.recall_target,
+                rescore_scales=rescore_scales, valid_count=valid,
+                item_mask=fmask)
+        if self.approx:
+            return approx_topk_over_matrix(
+                q, self._items, self.max_k, block_size=big,
+                recall_target=self.recall_target, valid_count=valid,
+                item_mask=fmask)
         return topk_over_matrix(q, self._items, self.max_k, self.block_size,
-                                item_mask=fmask)
+                                valid_count=valid, item_mask=fmask)
 
     def _mask_from_ids(self, id_list: Sequence[str]):
         """(device bool mask over the catalog rows, n ids that matched).
@@ -213,6 +275,57 @@ class RetrievalService:
         with self._lock:
             self._filter_masks[str(name)] = mask
         return matched
+
+    def add_items(self, ids: Sequence[str], vectors: np.ndarray) -> int:
+        """Append items to the live catalog (``/admin/add_items``); needs
+        ``add_capacity`` headroom. The rows are written in place into the
+        preallocated device buffers (``copy_`` on a slice, on the current
+        stream, under the query lock, so they are ordered before the next
+        query): the float32 rows, the int8 rows and scales from the host
+        quantizer (bit-identical to the device one), and the fused scan
+        copy's columns (and its int8 codes and scales) at the same
+        offsets. Everything is validated before any state moves, and the
+        host index is extended last. Returns the new catalog size. New
+        rows are outside every registered filter until it is set again."""
+        if not self.add_capacity:
+            raise ValueError(
+                "service has no growth headroom: start it with "
+                "add_capacity=N (--add_capacity) to enable add_items")
+        vectors = np.atleast_2d(np.asarray(vectors, np.float32))
+        n = vectors.shape[0]
+        if vectors.ndim != 2 or vectors.shape[1] != self._dim:
+            raise ValueError(
+                f"vectors {vectors.shape} != (n, {self._dim})")
+        str_ids = [str(i) for i in ids]
+        if len(str_ids) != n:
+            raise ValueError(f"{len(str_ids)} ids vs {n} vectors")
+        with self._lock:
+            if self._n_valid + n > self.capacity:
+                raise ValueError(
+                    f"capacity exhausted: {self._n_valid}+{n} > "
+                    f"{self.capacity}; reload with a larger add_capacity")
+            dup = [i for i in str_ids if i in self.index._id2row]
+            if dup or len(set(str_ids)) != len(str_ids):
+                raise ValueError(f"duplicate ids: {dup or 'within batch'}")
+            start, end = self._n_valid, self._n_valid + n
+            rows = torch.from_numpy(vectors)
+            if self._items is not None:
+                self._items[start:end].copy_(rows)
+            if self._q_items is not None:
+                q8, sc = (torch.from_numpy(a) for a in quantize_rows_np(vectors))
+                self._q_items[start:end].copy_(q8)
+                self._scales[start:end].copy_(sc)
+            if self._items_packed is not None:
+                # the transposed scan copy holds an item as a column
+                if self._fused_scales is not None:
+                    self._items_packed[:, start:end].copy_(q8.T)
+                    self._fused_scales[start:end].copy_(sc)
+                else:
+                    self._items_packed[:, start:end].copy_(rows.T)
+            self._ids[start:end] = str_ids
+            self.index.extend(str_ids, vectors)
+            self._n_valid = end
+            return end
 
     @property
     def dim(self) -> int:
@@ -254,8 +367,8 @@ class RetrievalService:
         if self.fused:
             return f"fused:bins={self._fused_bins}{q8}{r8}"
         if self.quantized:
-            return "int8" + r8
-        return "exact"
+            return ("int8+approx" if self.approx else "int8") + r8
+        return "approx" if self.approx else "exact"
 
     def exclusion_budget(self, k: int, exclude) -> int:
         """Validate an exclusion list against the top-k width: exclusion
@@ -296,7 +409,14 @@ class RetrievalService:
                     f"unknown filter {filter!r}; registered: "
                     f"{sorted(self._filter_masks)}") from None
         k = self.max_k if k is None else min(k, self.max_k)
+        # a growable service's max_k may pass the live size: never return
+        # more rows than real items exist now
+        k = min(k, self._n_valid)
         fetch = k if not exclude else self.exclusion_budget(k, exclude)
+        if fetch > self._n_valid:
+            raise ValueError(
+                f"k + len(exclude) = {fetch} exceeds the current catalog "
+                f"size {self._n_valid}")
         excl = frozenset(exclude) if exclude else frozenset()
         q = np.atleast_2d(np.asarray(vectors, np.float32))
         if q.shape[1] != self._dim:
@@ -348,13 +468,15 @@ class QueryBatcher:
     """
 
     class Closed(RuntimeError):
-        """Raised by submit() once close() has begun."""
+        """Raised by submit() once close() has begun: a caller holding a
+        batcher that a reload retired retries on the current one."""
 
     def __init__(self, service: RetrievalService, max_wait_ms: float = 2.0):
         self.service = service
         self.max_wait = max_wait_ms / 1000.0
         self._q: "queue.Queue" = queue.Queue()
         self._closed = False
+        self._inflight = 0
         self._state_lock = threading.Lock()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -375,11 +497,21 @@ class QueryBatcher:
         with self._state_lock:
             if self._closed:
                 raise QueryBatcher.Closed("batcher closed")
+            self._inflight += 1
             self._q.put((vec, done, slot))
-        done.wait()
+        try:
+            done.wait()
+        finally:
+            with self._state_lock:
+                self._inflight -= 1
         if "err" in slot:
             raise slot["err"]
         return slot["ids"], slot["scores"]
+
+    def idle(self) -> bool:
+        """True when no submit() is waiting and the queue is empty."""
+        with self._state_lock:
+            return self._inflight == 0 and self._q.empty()
 
     def close(self) -> None:
         """Stop the dispatcher; waiters that slipped in get ``Closed``."""
@@ -439,7 +571,10 @@ class QueryBatcher:
 
 
 class _Handler(BaseHTTPRequestHandler):
-    """Reads the server's (service, batcher) pair once per request."""
+    """Reads the server's (service, batcher) pair once per request, so a
+    reload never hands a request the new service with the old batcher. A
+    request that raced a reload into a just-closed batcher gets
+    :class:`QueryBatcher.Closed` and retries once on the current pair."""
 
     def _send(self, code: int, payload: dict):
         body = json.dumps(payload).encode()
@@ -475,7 +610,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "queries": q,
                 "device_calls": d,
                 "queries_per_dispatch": round(q / d, 2) if d else None,
-                "reloads": 0,
+                "reloads": self.server.reloads,
                 "latency_ms": service.latency_ms,
                 "device": str(service.device),
                 "uptime_s": round(time.time() - self.server.started, 1)})
@@ -488,8 +623,32 @@ class _Handler(BaseHTTPRequestHandler):
             if token and self.headers.get("X-Admin-Token") != token:
                 self._send(403, {"error": "bad or missing X-Admin-Token"})
                 return
-        if self.path in ("/admin/reload", "/admin/add_items"):
-            self._send(501, {"error": f"{self.path} is not ported yet"})
+        if self.path == "/admin/reload":
+            try:
+                req = self._read_json()
+                aux = req.get("aux", "rebuild")
+                t0 = time.perf_counter()
+                self.server.reload_index(req.get("index"), aux=aux)
+                self._send(200, {
+                    "status": "ok",
+                    "items": len(self.server.service.index),
+                    "index": self.server.index_path, "aux": aux,
+                    "reload_seconds": round(time.perf_counter() - t0, 3)})
+            except Exception as e:  # no path, missing file, bad aux, ...
+                self._send(400, {"error": str(e)})
+            return
+        if self.path == "/admin/add_items":
+            try:
+                req = self._read_json()
+                ids = req.get("ids") or []
+                vecs = np.asarray(req.get("vectors") or [], np.float32)
+                service = self.server.service
+                total = service.add_items(ids, vecs)
+                self._send(200, {"status": "ok", "added": len(ids),
+                                 "items": total,
+                                 "capacity_left": service.capacity - total})
+            except Exception as e:  # no headroom, duplicate ids, bad dims
+                self._send(400, {"error": str(e)})
             return
         if self.path == "/admin/set_filter":
             try:
@@ -550,7 +709,18 @@ class _Handler(BaseHTTPRequestHandler):
                                  "need 'vector', 'id', 'text' or 'image_key'"})
                 return
             if batcher is not None and filt is None:
-                ids, scores = batcher.submit(vec, k, exclude=exclude)
+                try:
+                    ids, scores = batcher.submit(vec, k, exclude=exclude)
+                except QueryBatcher.Closed:
+                    # a reload retired the batcher between the pair's read
+                    # and the submit: retry once on the current pair
+                    service, batcher = self.server.serving
+                    if batcher is not None:
+                        ids, scores = batcher.submit(vec, k, exclude=exclude)
+                    else:
+                        ids2, scores2 = service.topk(vec[None, :], k,
+                                                     exclude=exclude)
+                        ids, scores = ids2[0], scores2[0]
             else:
                 ids2, scores2 = service.topk(vec[None, :], k,
                                              exclude=exclude, filter=filt)
@@ -564,11 +734,19 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class RetrievalHTTPServer(ThreadingHTTPServer):
-    """ThreadingHTTPServer holding one (service, batcher) pair; closing
-    the server stops the batcher's thread."""
+    """ThreadingHTTPServer holding one (service, batcher) pair, with a
+    reload that swaps in a new catalog while queries go on.
+
+    ``reload_index(path)`` builds a complete new :class:`RetrievalService`
+    (upload, quantize, scan copy, warm-up query) while the old one answers,
+    then swaps the pair in one assignment. Reloads run one at a time. The
+    replaced batcher closes once its in-flight requests drain. During a
+    reload the old and the new catalog are both on the device. Closing the
+    server stops the current batcher's thread."""
 
     index_path: Optional[str] = None
     admin_token: Optional[str] = None  # set -> /admin/* requires header
+    reloads = 0
     _serving: Tuple[RetrievalService, Optional[QueryBatcher]]
 
     @property
@@ -583,6 +761,57 @@ class RetrievalHTTPServer(ThreadingHTTPServer):
     def batcher(self) -> Optional[QueryBatcher]:
         return self._serving[1]
 
+    def _configure(self, index_path: Optional[str], service_kwargs: dict,
+                   coalesce: bool, max_wait_ms: float) -> None:
+        self.index_path = index_path
+        self._service_kwargs = dict(service_kwargs)
+        self._coalesce = coalesce
+        self._max_wait_ms = max_wait_ms
+        self._reload_lock = threading.Lock()
+        self.started = time.time()
+        self.reloads = 0
+
+    @staticmethod
+    def _retire_batcher(batcher: QueryBatcher, grace_s: float = 60.0):
+        """Close a replaced batcher once its in-flight requests drain (so
+        none hangs on a queue nobody reads), at the latest after
+        ``grace_s``."""
+        def closer():
+            deadline = time.monotonic() + grace_s
+            while not batcher.idle() and time.monotonic() < deadline:
+                time.sleep(0.05)
+            batcher.close()
+        threading.Thread(target=closer, daemon=True).start()
+
+    def reload_index(self, index_path: Optional[str] = None,
+                     aux: str = "rebuild") -> None:
+        """Swap in the catalog at ``index_path`` (default: the serving
+        path) with no downtime. ``aux`` says how IVF/PQ structures follow
+        the catalog (``"rebuild"`` or ``"reuse"``); the ported modes hold
+        none, so both build the same service. A server started from an
+        :class:`EmbeddingIndex` object has no path to reload from, and a
+        reload without one raises ValueError."""
+        if aux not in ("rebuild", "reuse"):
+            raise ValueError(f"aux must be 'rebuild' or 'reuse', got {aux!r}")
+        with self._reload_lock:
+            path = index_path or self.index_path
+            if path is None:
+                raise ValueError(
+                    "this server was started from an EmbeddingIndex "
+                    "object, not a path: pass 'index' to reload")
+            index = EmbeddingIndex.load(path)
+            service = RetrievalService(index, **self._service_kwargs)
+            batcher = (QueryBatcher(service, max_wait_ms=self._max_wait_ms)
+                       if self._coalesce else None)
+            old_batcher = self.batcher
+            self._serving = (service, batcher)  # one assignment
+            self.index_path = path
+            self.reloads += 1
+            if old_batcher is not None:
+                self._retire_batcher(old_batcher)
+            log.info("reloaded %s: %d items (dim %d, %s)", path, len(index),
+                     service.dim, service.mode)
+
     def server_close(self) -> None:
         super().server_close()
         if self.batcher is not None:
@@ -592,8 +821,10 @@ class RetrievalHTTPServer(ThreadingHTTPServer):
 def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
           port: int = 8000, max_k: int = 100, max_batch: int = 8,
           coalesce: bool = True, max_wait_ms: float = 2.0,
+          approx: bool = False, recall_target: float = 0.95,
           fused: bool = False, fused_bins: int = 4096,
           quantized: bool = False, rescore_int8: bool = False,
+          add_capacity: int = 0,
           filters: Optional[Dict[str, Sequence[str]]] = None,
           admin_token: Optional[str] = None,
           device: Optional[Union[str, torch.device]] = None,
@@ -601,25 +832,28 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
     """Build the service and return a ready (not yet running) HTTP server.
 
     ``index`` is an index file path (``.npz``/``.json``) or an
-    :class:`EmbeddingIndex` already in memory. Call ``.serve_forever()``
-    to block, or run it in a thread; ``port=0`` picks a free port
-    (``server_address[1]``). ``coalesce`` batches concurrent single
-    queries (:class:`QueryBatcher`). ``quantized`` scans the catalog in
-    int8 with a float32 rescore; ``rescore_int8`` on top of it keeps no
-    float32 catalog on the device."""
-    _reject_unported(unported)
+    :class:`EmbeddingIndex` already in memory (then ``/admin/reload``
+    needs an explicit path). Call ``.serve_forever()`` to block, or run it
+    in a thread; ``port=0`` picks a free port (``server_address[1]``).
+    ``coalesce`` batches concurrent single queries (:class:`QueryBatcher`).
+    ``approx`` selects candidates as ``approx_max_k`` does at
+    ``recall_target``; ``quantized`` scans the catalog in int8 with a
+    float32 rescore (composes with ``approx``); ``rescore_int8`` on top of
+    it keeps no float32 catalog on the device; ``add_capacity`` leaves room
+    for ``/admin/add_items``."""
     index_path = index if isinstance(index, str) else None
     if index_path is not None:
         index = EmbeddingIndex.load(index_path)
-    service = RetrievalService(index, max_k=max_k, max_batch=max_batch,
-                               fused=fused, fused_bins=fused_bins,
-                               quantized=quantized,
-                               rescore_int8=rescore_int8,
-                               filters=filters, device=device)
+    service_kwargs = dict(max_k=max_k, max_batch=max_batch, approx=approx,
+                          recall_target=recall_target, fused=fused,
+                          fused_bins=fused_bins, quantized=quantized,
+                          rescore_int8=rescore_int8,
+                          add_capacity=add_capacity, filters=filters,
+                          device=device, **unported)
+    service = RetrievalService(index, **service_kwargs)
     batcher = QueryBatcher(service, max_wait_ms=max_wait_ms) if coalesce else None
     httpd = RetrievalHTTPServer((host, port), _Handler)
-    httpd.index_path = index_path
-    httpd.started = time.time()
+    httpd._configure(index_path, service_kwargs, coalesce, max_wait_ms)
     httpd._serving = (service, batcher)
     httpd.admin_token = admin_token
     if host not in ("127.0.0.1", "localhost", "::1") and not admin_token:
@@ -640,6 +874,11 @@ def main(argv=None):
     p.add_argument("--max_k", type=int, default=100)
     p.add_argument("--max_batch", type=int, default=8)
     p.add_argument("--no_coalesce", action="store_true")
+    p.add_argument("--approx", action="store_true",
+                   help="approx_max_k candidate selection per block (bins "
+                        "j mod L, L from --recall_target) + float32 rescore; "
+                        "composes with --quantized")
+    p.add_argument("--recall_target", type=float, default=0.95)
     p.add_argument("--fused", action="store_true",
                    help="fused scan+select kernel (retrieval/fused.py): "
                         "candidate selection happens during the catalog "
@@ -656,6 +895,10 @@ def main(argv=None):
                         "--quantized); residency falls to D+4 bytes/item "
                         "(2*(D+4) with --fused) vs 4*D+; returned scores "
                         "carry <=0.4%%-of-row-max int8 rounding")
+    p.add_argument("--add_capacity", type=int, default=0,
+                   help="preallocate this many extra catalog rows so POST "
+                        "/admin/add_items can append items live, written in "
+                        "place (full-scan modes)")
     p.add_argument("--filters_json", default="",
                    help='JSON {"name": ["catalog id", ...]} or a file of it; '
                         "'{}' enables filters with none registered yet")
@@ -671,9 +914,11 @@ def main(argv=None):
                 text = f.read()
         filters = json.loads(text)
     serve(args.index, args.host, args.port, args.max_k, args.max_batch,
-          coalesce=not args.no_coalesce, fused=args.fused,
+          coalesce=not args.no_coalesce, approx=args.approx,
+          recall_target=args.recall_target, fused=args.fused,
           fused_bins=args.fused_bins, quantized=args.quantized,
-          rescore_int8=args.rescore_int8, filters=filters,
+          rescore_int8=args.rescore_int8, add_capacity=args.add_capacity,
+          filters=filters,
           admin_token=args.admin_token or None,
           device=args.device).serve_forever()
 

@@ -25,18 +25,25 @@ momentum carrier; ``auto`` takes the lazy one once a table passes
     through ``fit``'s prefetch, with its checkpoint and preemption
     cadences.
 
-The reference's deploy cycles (retrain, export, hot reload into a live
-server) are not ported yet: they need the server's ``/admin/reload``.
-
 ``--quantized_serving`` serves the catalog from an int8 scan copy (the
 exact int8 scan, or the int8 fused kernel with ``--fused``) with a float32
 rescore; ``--rescore_int8`` on top of it keeps no float32 catalog on the
-device.
+device. ``--approx_serving`` selects candidates as ``approx_max_k`` does
+(with ``--quantized_serving``, over the int8 scan).
+
+Deploy cycles (``--train --deploy_cycles N``, device feed): a live HTTP
+server in ``--deploy_serve_mode`` (a ``serving_bench.MODES`` name) and N
+retrain -> export -> embed -> save -> ``/admin/reload`` cycles of
+``--cycle_steps`` steps each, with a self-retrieval probe and, with
+``--deploy_quality_queries``, the live answers' overlap@k against an
+exact top-k over the new catalog; see :func:`deploy_loop`.
 
 Run: python -m esrecsys_tpu_torch.tools.full_scale_run --out_dir DIR \
-         [--fused] [--quantized_serving [--rescore_int8]] [--device cuda] \
-         [--train --steps N --eval_fused_bins L [--feed host|device]
-          [--ckpt_every N [--ckpt_async]] [--momentum_carrier lazy]]
+         [--fused] [--quantized_serving [--rescore_int8]] [--approx_serving]
+         [--device cuda] [--train --steps N --eval_fused_bins L
+          [--feed host|device] [--ckpt_every N [--ckpt_async]]
+          [--momentum_carrier lazy]
+          [--deploy_cycles N --cycle_steps S --deploy_serve_mode MODE]]
 """
 
 from __future__ import annotations
@@ -47,7 +54,9 @@ import itertools
 import json
 import logging
 import os
+import threading
 import time
+import urllib.request
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
@@ -58,7 +67,9 @@ from esrecsys_tpu_torch.core.device import resolve_device
 from esrecsys_tpu_torch.models.playlist import (PlaylistModel,
                                                 table_rows_multiple)
 from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
-from esrecsys_tpu_torch.serving.server import RetrievalService
+from esrecsys_tpu_torch.retrieval.mips import topk_over_matrix
+from esrecsys_tpu_torch.serving.server import RetrievalService, serve
+from esrecsys_tpu_torch.tools import serving_bench
 from esrecsys_tpu_torch.train.checkpoint import Checkpointer
 from esrecsys_tpu_torch.train.export import (export_model, latest_artifact,
                                             load_model)
@@ -92,6 +103,7 @@ class ServingRunConfig:
     fused_bins: int = 4096
     quantized: bool = False
     rescore_int8: bool = False
+    approx: bool = False
     device: str = "cuda"
 
 
@@ -111,6 +123,14 @@ class TrainRunConfig(ServingRunConfig):
     n_shards: int = 4  # host feed: packed training shards
     shard_examples: int = 262_144
     momentum_carrier: str = "auto"  # "auto" | "dense" | "lazy"
+    # deploy cycles (device feed only)
+    deploy_cycles: int = 0
+    cycle_steps: int = 500
+    deploy_serve_mode: str = "exact"
+    recall_target: float = 0.95
+    deploy_quality_queries: int = 0
+    deploy_quality_k: int = 100
+    deploy_reload_aux: str = "rebuild"
 
 
 def mix_mod(ids: np.ndarray, salt: int, mod: int) -> np.ndarray:
@@ -297,12 +317,29 @@ def run_train(run: TrainRunConfig) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
+
+    def do_export(state):
+        return export_model(
+            run.out_dir, "playlist", pl.settled_params(state, cfg),
+            step=int(state.step), metadata=pl.export_metadata(cfg))
+
+    def continue_fn(state, to_step):
+        """One retrain segment of the deploy cycles: the same step and
+        feed wiring from ``state`` (its momentum and step counter) to the
+        absolute step ``to_step``, with no eval or checkpoint inside, then
+        the export. The feed restarts from its seed, as the reference's
+        does."""
+        res = fit(state, train_step, device_feed(run, cfg, device),
+                  num_steps=to_step, log_every=cfg.log_every_steps,
+                  examples_per_step=cfg.batch_size, prefetch=0)
+        do_export(res.state)
+        return res.state
+
     t_exp = time.perf_counter()
-    artifact = export_model(
-        run.out_dir, "playlist", pl.settled_params(result.state, cfg),
-        step=int(result.state.step), metadata=pl.export_metadata(cfg))
+    artifact = do_export(result.state)
     return {"cfg": cfg, "result": result, "train_wall_s": wall,
             "export_s": time.perf_counter() - t_exp, "artifact": artifact,
+            "continue_fn": continue_fn,
             "examples": int(result.state.step) * cfg.batch_size}
 
 
@@ -388,8 +425,8 @@ def serve_from_artifact(cfg: ServingRunConfig,
     vecs = vectors.cpu().numpy()
     index = EmbeddingIndex([str(i) for i in range(cfg.num_tracks)], vecs)
     svc = RetrievalService(index, max_k=cfg.max_k, max_batch=cfg.max_batch,
-                           fused=cfg.fused, fused_bins=cfg.fused_bins,
-                           quantized=cfg.quantized,
+                           approx=cfg.approx, fused=cfg.fused,
+                           fused_bins=cfg.fused_bins, quantized=cfg.quantized,
                            rescore_int8=cfg.rescore_int8, device=cfg.device)
     ids, scores = svc.topk(vecs[:1], k=cfg.max_k)  # the first real query
     t_first_query = time.perf_counter() - t0
@@ -406,7 +443,111 @@ def serve_from_artifact(cfg: ServingRunConfig,
                  "serving_qps": qps}
 
 
-def main(argv=None):
+def _post(url: str, body: dict) -> dict:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def live_overlap(url: str, catalog: torch.Tensor, nq: int, k: int,
+                 rng: np.random.Generator) -> float:
+    """overlap@k of the live server's answers to ``nq`` near-catalog
+    queries against an exact top-k over ``catalog`` (the generation just
+    loaded), ties counted: the share of returned ids whose exact score is
+    at or above the exact k-th (tracks of one album and artist share a
+    vector)."""
+    vecs = catalog.cpu().numpy()
+    q = (vecs[rng.integers(0, len(vecs), nq)]
+         + rng.normal(size=(nq, vecs.shape[1])).astype(np.float32)
+         * 0.05 * np.abs(vecs).mean())
+    got = _post(f"{url}/v1/topk", {"vectors": q.tolist(), "k": k})["ids"]
+    qt = torch.from_numpy(q).to(catalog.device)
+
+    def scores(ids):  # one float32 multiply-sum for both sides
+        return (catalog[ids] * qt[:, None, :]).sum(-1)
+
+    kth = scores(topk_over_matrix(qt, catalog, k)[1]).min(-1, keepdim=True)
+    ids = torch.tensor([[int(i) for i in row] for row in got],
+                       device=catalog.device)
+    found = (scores(ids) >= kth.values).float()
+    return float(found.sum(-1).div(k).mean())
+
+
+def deploy_loop(run: TrainRunConfig, corpus: Dict[str, np.ndarray], state,
+                continue_fn) -> dict:
+    """Continuous deployment against a live HTTP server: ``run.deploy_cycles``
+    cycles of retrain (``continue_fn``, ``run.cycle_steps`` steps), export,
+    embed the catalog and save it, then ``/admin/reload``
+    into the running server, ``run.deploy_serve_mode`` (a
+    ``serving_bench.MODES`` name). Per cycle: ``retrain_s``,
+    ``embed_and_save_s``, ``reload_s`` (upload, quantize or scan copy,
+    warm-up query), ``artifact_to_live_s`` (the last two), ``probe_hit``
+    (item 17's own vector returns it in its top 10, asserted: every ported
+    mode scans the full catalog) and, with ``run.deploy_quality_queries``,
+    ``overlap_at_k`` of the live answers (:func:`live_overlap`)."""
+    track_ids = [str(i) for i in range(run.num_tracks)]
+
+    def build_index(tag):
+        t0 = time.perf_counter()
+        vectors = embed_catalog_from_artifact(run, corpus)
+        path = os.path.join(run.out_dir, f"index_{tag}.npz")
+        EmbeddingIndex(track_ids, vectors.cpu().numpy()).save(path)
+        return path, time.perf_counter() - t0, vectors
+
+    mode = run.deploy_serve_mode
+    mode_kw = serving_bench.mode_kwargs(mode, run)
+    path0, _, _ = build_index("v0")
+    t_up = time.perf_counter()
+    httpd = serve(path0, port=0, max_k=run.max_k, max_batch=run.max_batch,
+                  coalesce=False, device=run.device, **mode_kw)
+    startup_s = time.perf_counter() - t_up
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    cycles = []
+    try:
+        step = int(state.step)
+        for i in range(run.deploy_cycles):
+            t_cycle = time.perf_counter()
+            step += run.cycle_steps
+            state = continue_fn(state, step)
+            t_train = time.perf_counter() - t_cycle
+            path, embed_s, vectors = build_index(f"v{i + 1}")
+            t_reload = time.perf_counter()
+            rep = _post(f"{url}/admin/reload",
+                        {"index": path, "aux": run.deploy_reload_aux})
+            reload_s = time.perf_counter() - t_reload
+            if rep.get("status") != "ok" or rep.get("index") != path:
+                raise RuntimeError(f"reload answered {rep}")
+            probe = _post(f"{url}/v1/topk", {"id": "17", "k": 10})["ids"]
+            probe_hit = "17" in probe
+            if not probe_hit:
+                raise AssertionError(
+                    f"self-retrieval missed in {mode} mode: {probe}")
+            cyc = {"cycle": i + 1, "steps": run.cycle_steps,
+                   "retrain_s": t_train, "embed_and_save_s": embed_s,
+                   "reload_s": reload_s,
+                   "artifact_to_live_s": embed_s + reload_s,
+                   "probe_hit": probe_hit}
+            if run.deploy_quality_queries:
+                cyc["overlap_at_k"] = live_overlap(
+                    url, vectors, run.deploy_quality_queries,
+                    run.deploy_quality_k, np.random.default_rng(1000 + i))
+            cycles.append(cyc)
+            log.info("deploy cycle %d: retrain %.1fs embed %.1fs reload "
+                     "%.1fs", i + 1, t_train, embed_s, reload_s)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    return {"deploy_cycles": cycles, "deploy_serve_mode": mode,
+            "deploy_reload_aux": run.deploy_reload_aux,
+            "deploy_server_startup_s": startup_s,
+            "deploy_final_step": int(state.step)}
+
+
+def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO, force=True)
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--out_dir", required=True)
@@ -418,6 +559,8 @@ def main(argv=None):
     p.add_argument("--rescore_int8", action="store_true",
                    help="with --quantized_serving: rescore from the int8 "
                         "rows, so no float32 catalog is on the device")
+    p.add_argument("--approx_serving", action="store_true",
+                   help="approx_max_k candidate selection + float32 rescore")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     # scale overrides (tests / CPU smoke; defaults are the MPD scale)
@@ -454,31 +597,62 @@ def main(argv=None):
                    choices=["auto", "dense", "lazy"],
                    help="the row-sparse step's momentum carrier; auto takes "
                         "the lazy one past 1 GB a table")
+    p.add_argument("--deploy_cycles", type=int, default=0,
+                   help="after training, run N retrain->export->hot-reload "
+                        "cycles against a live server (device feed only)")
+    p.add_argument("--cycle_steps", type=int, default=500)
+    p.add_argument("--deploy_serve_mode", default="exact",
+                   choices=serving_bench.MODES,
+                   help="the live server's retrieval mode (the ivf and pq "
+                        "modes are not ported yet and raise)")
+    p.add_argument("--recall_target", type=float, default=0.95)
+    p.add_argument("--deploy_quality_queries", type=int, default=0,
+                   help="after each reload, the live answers' overlap@k "
+                        "against an exact top-k over the new catalog on "
+                        "this many near-catalog queries (0: off)")
+    p.add_argument("--deploy_quality_k", type=int, default=100)
+    p.add_argument("--deploy_reload_aux", default="rebuild",
+                   choices=["rebuild", "reuse"])
     args = p.parse_args(argv)
     cfg = TrainRunConfig(
         out_dir=args.out_dir, num_tracks=args.corpus_size,
         num_albums_raw=args.num_albums_raw, album_buckets=args.album_buckets,
         num_artists=args.num_artists, seed=args.seed, fused=args.fused,
         fused_bins=args.fused_bins, quantized=args.quantized_serving,
-        rescore_int8=args.rescore_int8, device=args.device, steps=args.steps,
+        rescore_int8=args.rescore_int8, approx=args.approx_serving,
+        device=args.device, steps=args.steps,
         batch_size=args.batch_size, max_next=args.max_next,
         eval_every=args.eval_every, eval_playlists=args.eval_playlists,
         eval_fused_bins=args.eval_fused_bins, feed=args.feed,
         n_shards=args.n_shards, shard_examples=args.shard_examples,
         ckpt_every=args.ckpt_every, ckpt_async=args.ckpt_async,
-        momentum_carrier=args.momentum_carrier)
+        momentum_carrier=args.momentum_carrier,
+        deploy_cycles=args.deploy_cycles, cycle_steps=args.cycle_steps,
+        deploy_serve_mode=args.deploy_serve_mode,
+        recall_target=args.recall_target,
+        deploy_quality_queries=args.deploy_quality_queries,
+        deploy_quality_k=args.deploy_quality_k,
+        deploy_reload_aux=args.deploy_reload_aux)
     os.makedirs(cfg.out_dir, exist_ok=True)
+    tr = None
     if args.train:
-        out = train_report(cfg, run_train(cfg))
+        tr = run_train(cfg)
+        out = train_report(cfg, tr)
     else:
         t0 = time.perf_counter()
         init_and_export(cfg)
         out = {"export_s": time.perf_counter() - t0}
+    if cfg.deploy_cycles and (tr is None or "continue_fn" not in tr):
+        raise SystemExit("--deploy_cycles needs --train with --feed device")
     _, report = serve_from_artifact(cfg, synth_corpus(cfg))
     out.update(report)
+    if cfg.deploy_cycles:
+        out.update(deploy_loop(cfg, synth_corpus(cfg), tr["result"].state,
+                               tr["continue_fn"]))
     with open(os.path.join(cfg.out_dir, "full_scale_run.json"), "w") as f:
         json.dump(out, f, indent=2)
     print(json.dumps(out))
+    return out
 
 
 if __name__ == "__main__":

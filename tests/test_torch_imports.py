@@ -50,7 +50,7 @@ def test_port_has_the_slice_modules():
                 "core/tracking.py", "core/profiling.py", "data/vocab.py",
                 "data/tfrecord.py", "data/pipelines.py", "data/prefetch.py",
                 "train/checkpoint.py", "train/preemption.py",
-                "etl/playlists.py"):
+                "etl/playlists.py", "tools/serving_bench.py"):
         assert (PORT / rel).is_file(), rel
 
 

@@ -168,11 +168,21 @@ def test_per_block_k_and_oversample_match_jax():
 
 
 def test_select_approx_is_not_ported_and_bad_select_raises():
-    items = torch.randn(300, 16)
-    t8, ts = tmips.quantize_rows(items)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmips.quantized_topk_over_matrix(torch.randn(2, 16), t8, ts, items,
-                                         10, select="approx")
+    """select="approx" is ported now: at 300 rows the approx select's
+    reduction is 0 (one bin a position), so it equals the JAX function,
+    whose CPU approx_max_k is exact. A bad select still raises."""
+    rng = np.random.default_rng(3)
+    items = rng.normal(size=(300, 16)).astype(np.float32)
+    q = rng.normal(size=(2, 16)).astype(np.float32)
+    t8, ts = tmips.quantize_rows(torch.from_numpy(items))
+    q8, sc = jmips.quantize_rows(jnp.asarray(items))
+    assert tmips.approx_reduction_size(384, 40, 0.95)[1] == 0
+    tv, ti = tmips.quantized_topk_over_matrix(
+        torch.from_numpy(q), t8, ts, torch.from_numpy(items), 10,
+        select="approx")
+    jv, ji = jmips.quantized_topk_over_matrix(
+        jnp.asarray(q), q8, sc, jnp.asarray(items), 10, select="approx")
+    _assert_topk(tv, ti, jv, ji, items, q)
     with pytest.raises(ValueError, match="select"):
         tmips.quantized_topk_over_matrix(torch.randn(2, 16), t8, ts, items,
                                          10, select="bogus")

@@ -211,8 +211,9 @@ def test_http_round_trip_matches_jax(catalog):
                                         "filter": "even"})
         assert all(int(i[4:]) % 2 == 0 for i in filt["ids"])
         errors = {}
+        missing = path[:-len(".npz")] + "-missing.npz"
         for name, route, body, token in (
-                ("reload", "/admin/reload", {}, "s3cret"),
+                ("reload", "/admin/reload", {"index": missing}, "s3cret"),
                 ("add", "/admin/add_items", {}, "s3cret"),
                 ("token", "/admin/set_filter", {"name": "x", "ids": []}, None),
                 ("unknown_id", "/v1/topk", {"id": "nope"}, None),
@@ -221,7 +222,8 @@ def test_http_round_trip_matches_jax(catalog):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(url + route, body, token)
             errors[name] = e.value.code
-        assert errors == {"reload": 501, "add": 501, "token": 403,
+        # a reload from a missing file, and an add without add_capacity
+        assert errors == {"reload": 400, "add": 400, "token": 403,
                           "unknown_id": 404, "bad_dim": 400, "text": 400}
         with urllib.request.urlopen(f"{url}/statsz", timeout=60) as r:
             stats = json.loads(r.read())
@@ -239,8 +241,18 @@ def test_http_round_trip_matches_jax(catalog):
     ("approx", True), ("ivf_clusters", 16), ("pq_subspaces", 4), ("n_model_shards", 2),
     ("add_capacity", 10), ("encoders", {"text": len})])
 def test_unported_modes_raise(catalog, option, value):
+    """Each reference option that selects a mode the port lacks raises
+    NotImplementedError naming it; approx and add_capacity are ported
+    now, and construct with the reference's mode and capacity."""
     ids, vecs, _, _ = catalog
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    if option in ("approx", "add_capacity"):
+        svc = tserver.RetrievalService(EmbeddingIndex(ids, vecs),
+                                       device="cpu", **{option: value})
+        assert svc.mode == ("approx" if option == "approx" else "exact")
+        assert svc.capacity == M + (value if option == "add_capacity" else 0)
+        return
+    with pytest.raises(NotImplementedError,
+                       match=f"'{option}' is not ported yet"):
         tserver.RetrievalService(EmbeddingIndex(ids, vecs), device="cpu",
                                  **{option: value})
 

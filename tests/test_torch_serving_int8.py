@@ -132,10 +132,20 @@ def test_option_checks_like_reference(catalog):
         tserver.RetrievalService(EmbeddingIndex(ids, vecs), device="cpu",
                                  fused=True, quantized=True,
                                  n_model_shards=2)
-    # the int8 scan with approx_max_k selection is not ported
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tserver.RetrievalService(EmbeddingIndex(ids, vecs), device="cpu",
-                                 quantized=True, approx=True)
+    # the int8 scan with approx_max_k selection is ported: the
+    # reference's mode string; approx does not compose with fused
+    svc = tserver.RetrievalService(EmbeddingIndex(ids, vecs), device="cpu",
+                                   quantized=True, approx=True)
+    assert svc.mode == jserver.RetrievalService(
+        JaxIndex(ids, vecs), quantized=True, approx=True).mode == \
+        "int8+approx"
+    for make in (lambda: tserver.RetrievalService(
+            EmbeddingIndex(ids, vecs), device="cpu", fused=True,
+            approx=True),
+                 lambda: jserver.RetrievalService(
+            JaxIndex(ids, vecs), fused=True, approx=True)):
+        with pytest.raises(ValueError, match="approx"):
+            make()
 
 
 def _post(url, body):
