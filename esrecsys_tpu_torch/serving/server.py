@@ -10,8 +10,15 @@
     rescores from the int8 rows too, so no float32 catalog is on the
     device at all. ``approx=True`` selects each block's candidates as the
     TPU's ``approx_max_k`` does (``mips.approx_topk_over_matrix``; with
-    ``quantized``, over the int8 scores). ``add_capacity=N`` preallocates
-    N more rows in every device buffer, which ``add_items`` fills in place.
+    ``quantized``, over the int8 scores). ``ivf_clusters=N`` k-means the
+    catalog into N cells and probes ``nprobe`` per query
+    (``retrieval/ivf.py``; with ``quantized`` the candidates are scored in
+    int8); ``pq_subspaces=S`` scans S-byte PQ codes with a float32 rescore
+    (``retrieval/pq.py``; with ``ivf_clusters`` it is IVF-PQ,
+    ``ivf.ivf_pq_topk``). ``ivf_index_path``/``pq_index_path`` load a
+    prebuilt structure, or build and save one there. ``add_capacity=N``
+    preallocates N more rows in every device buffer, which ``add_items``
+    fills in place.
   * ``QueryBatcher`` coalesces concurrent single queries into one call.
   * ``serve`` returns a stdlib ``ThreadingHTTPServer`` exposing:
       GET  /healthz            -> {"status": "ok", "items": N, ...}
@@ -32,7 +39,8 @@
                                   swapped in (RetrievalHTTPServer)
 
 Not ported yet (construction raises ``NotImplementedError`` naming the
-option): the IVF, PQ and catalog-sharded modes, and query encoders.
+option): the catalog-sharded modes (``n_model_shards``) and query
+encoders.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from __future__ import annotations
 import collections
 import json
 import logging
+import os
 import queue
 import threading
 import time
@@ -55,34 +64,38 @@ from esrecsys_tpu_torch.retrieval.fused import (binned_topk_over_matrix,
                                                 pack_catalog_codes, pad_mask,
                                                 validate_fused_bins)
 from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
+from esrecsys_tpu_torch.retrieval.ivf import IVFIndex, ivf_pq_topk, ivf_topk
 from esrecsys_tpu_torch.retrieval.mips import (approx_topk_over_matrix,
                                                quantize_rows,
                                                quantize_rows_np,
                                                quantized_topk_over_matrix,
                                                topk_over_matrix)
+from esrecsys_tpu_torch.retrieval.pq import PQCodebook, pq_topk
 
 log = logging.getLogger(__name__)
 
-# the reference's serving options that have no port yet: the modes they
-# select, and the knobs that only tune those modes (inert without them,
-# as in the reference)
-UNPORTED_OPTIONS = ("ivf_clusters", "ivf_index_path", "pq_subspaces",
-                    "pq_index_path", "n_model_shards", "encoders")
-UNPORTED_MODIFIERS = ("nprobe", "ivf_iters", "ivf_max_cell",
-                      "build_train_sample", "pq_codes", "pq_iters",
-                      "pq_oversample", "pq_rotate", "pq_anisotropic")
+# the reference's serving options that have no port yet
+UNPORTED_OPTIONS = ("n_model_shards", "encoders")
 
 
 def _reject_unported(options: dict) -> None:
     for name in options:
-        if name not in UNPORTED_OPTIONS + UNPORTED_MODIFIERS:
+        if name not in UNPORTED_OPTIONS:
             raise TypeError(f"unexpected keyword argument {name!r}")
     for name in UNPORTED_OPTIONS:
         if options.get(name):
             raise NotImplementedError(
                 f"serving option {name!r} is not ported yet; the port "
-                "serves the exact, approx, fused and int8 (quantized) "
-                "modes")
+                "serves the exact, approx, fused, int8 (quantized), ivf "
+                "and pq modes on one card")
+
+
+def _npz_path(path: Optional[str]) -> Optional[str]:
+    """``np.savez`` appends .npz to a path without it; normalised up front
+    so that a restart's existence check finds what was saved."""
+    if path and not path.endswith(".npz"):
+        return path + ".npz"
+    return path
 
 
 def _finite_row(ids_row, scores_row):
@@ -106,10 +119,16 @@ class RetrievalService:
     so the kernel build and first launch happen before the first request.
 
     With ``add_capacity=N`` every device buffer (the float32 rows, the int8
-    rows and scales, the fused scan copy and its scales, the filter masks)
-    is allocated at ``len(index) + N`` rows, the tail zero, and every scan
-    takes the live row count as its valid bound. :meth:`add_items` then
-    writes new rows in place; no buffer is reallocated.
+    rows and scales, the fused scan copy and its scales, the PQ codes, the
+    filter masks) is allocated at ``len(index) + N`` rows, the tail zero,
+    and every scan takes the live row count as its valid bound.
+    :meth:`add_items` then writes new rows in place; no buffer is
+    reallocated. The IVF modes grow through a reload instead.
+
+    ``ivf_warm_from``/``pq_warm_from`` are the trained structures of an
+    earlier catalog (a reload's ``aux="reuse"``): this catalog's are
+    derived from them by one assign or encode pass, ahead of a prebuilt
+    path and of a fresh build.
     """
 
     def __init__(self, index: EmbeddingIndex, max_k: int = 100,
@@ -117,26 +136,50 @@ class RetrievalService:
                  approx: bool = False, recall_target: float = 0.95,
                  fused: bool = False, fused_bins: int = 4096,
                  quantized: bool = False, rescore_int8: bool = False,
+                 ivf_clusters: Optional[int] = None, nprobe: int = 8,
+                 ivf_iters: int = 20,
+                 build_train_sample: Optional[int] = None,
+                 ivf_max_cell: Optional[int] = None,
+                 ivf_index_path: Optional[str] = None,
+                 pq_subspaces: Optional[int] = None, pq_codes: int = 256,
+                 pq_iters: int = 15, pq_oversample: int = 64,
+                 pq_rotate: bool = False,
+                 pq_anisotropic: Optional[float] = None,
+                 pq_index_path: Optional[str] = None,
                  add_capacity: int = 0,
                  filters: Optional[Dict[str, Sequence[str]]] = None,
                  device: Optional[Union[str, torch.device]] = None,
+                 ivf_warm_from: Optional[IVFIndex] = None,
+                 pq_warm_from: Optional[PQCodebook] = None,
                  **unported):
         if fused and quantized and unported.get("n_model_shards"):
             raise ValueError(
                 "sharded fused serving scans bf16: drop quantized or "
                 "n_model_shards (int8 scan copies are single-shard)")
         _reject_unported(unported)
-        if fused and approx:
+        want_ivf = bool(ivf_clusters or ivf_index_path)
+        want_pq = bool(pq_subspaces or pq_index_path)
+        if want_ivf and approx:
+            raise ValueError("ivf and approx are mutually exclusive"
+                             " (ivf probe selection already approximates)")
+        if fused and (approx or want_ivf or want_pq):
             raise ValueError(
                 "fused is a complete scan+select path: it does not "
-                "compose with approx")
+                "compose with approx/ivf/pq modes")
+        if want_pq and (approx or quantized):
+            raise ValueError("pq is an alternative catalog scan: it does "
+                             "not compose with approx/quantized")
         # rescore_int8 keeps no float32 catalog on the device, so the scan
-        # must not read one: the int8 modes are the ported scans that don't
-        if rescore_int8 and not quantized:
+        # must not read one: the int8 and pq scans don't
+        if rescore_int8 and not (quantized or want_pq):
             raise ValueError(
                 "rescore_int8 drops the resident f32 catalog, so the scan "
-                "must not need it: enable quantized (the pq modes are not "
-                "ported yet)")
+                "must not need it: enable quantized or a pq mode")
+        if add_capacity and want_ivf:
+            raise ValueError(
+                "add_capacity composes with the full-scan modes "
+                "(exact/approx/int8/pq); ivf catalogs grow via "
+                "/admin/reload")
         self.device = resolve_device(device)
         self.index = index
         self.max_k = min(max_k, len(index))
@@ -158,6 +201,8 @@ class RetrievalService:
         self.fused = fused
         self.quantized = quantized
         self.rescore_int8 = rescore_int8
+        self.nprobe = nprobe
+        self.pq_oversample = pq_oversample
         if fused:
             # at least ceil(max_k/2) bins so 2L >= k (fused.py recall math)
             self._fused_bins = max(
@@ -168,22 +213,50 @@ class RetrievalService:
                                 use_scales=quantized, device=self.device)
         else:
             self._fused_bins = None
-        # (capacity, D) float32 rows, resident unless rescore_int8 drops them
+        # one build-or-load decision per structure, shared by the upload
+        # gate and the builds below
+        ivf_index_path = _npz_path(ivf_index_path)
+        pq_index_path = _npz_path(pq_index_path)
+        ivf_prebuilt = bool(ivf_index_path and os.path.exists(ivf_index_path))
+        pq_prebuilt = bool(pq_index_path and os.path.exists(pq_index_path))
+        # (capacity, D) float32 rows, resident unless rescore_int8 drops
+        # them; under rescore_int8 a build or a warm start uploads the real
+        # rows for itself and drops them after, and with every structure
+        # prebuilt no float32 catalog reaches the device at all
         self._items = (None if rescore_int8 else
                        self._at_capacity(torch.from_numpy(index.vectors)))
+        build_rows = None
+        if self._items is not None:
+            build_rows = self._items[:self._n_valid]
+        elif (ivf_warm_from is not None or pq_warm_from is not None
+              or (want_ivf and not ivf_prebuilt)
+              or (want_pq and not pq_prebuilt)):
+            build_rows = torch.from_numpy(index.vectors).to(self.device)
         # int8 rows and scales: quantized on the device from the resident
         # float32 rows, or on the host (the bit-identical numpy twin) under
-        # rescore_int8, so that no float32 catalog ever reaches the device;
+        # rescore_int8, so that no float32 catalog need reach the device;
         # the capacity tail holds code 0 and scale 0
         self._q_items = self._scales = None
-        if quantized and self._items is not None:
+        if (quantized or rescore_int8) and self._items is not None:
             q8, sc = quantize_rows(self._items[:self._n_valid])
             self._q_items, self._scales = (self._at_capacity(q8),
                                            self._at_capacity(sc))
-        elif quantized:
+        elif quantized or rescore_int8:
             q8, sc = quantize_rows_np(index.vectors)
             self._q_items = self._at_capacity(torch.from_numpy(q8))
             self._scales = self._at_capacity(torch.from_numpy(sc))
+        self.ivf = self._centroids = self._bucket_ids = None
+        if want_ivf or ivf_warm_from is not None:
+            self._setup_ivf(build_rows, ivf_clusters, ivf_iters, ivf_max_cell,
+                            build_train_sample, ivf_index_path, ivf_prebuilt,
+                            ivf_warm_from)
+        self.pq = self._pq_centroids = self._pq_codes = self._pq_rot = None
+        self._pq_codes_host = None
+        if want_pq or pq_warm_from is not None:
+            self._setup_pq(build_rows, pq_subspaces, pq_codes, pq_iters,
+                           pq_rotate, pq_anisotropic, build_train_sample,
+                           pq_index_path, pq_prebuilt, pq_warm_from)
+        del build_rows
         # the scan copy, built once on the device at capacity: transposed
         # bf16, or the transposed int8 codes with a flat scale per item
         self._items_packed = self._fused_scales = None
@@ -206,6 +279,98 @@ class RetrievalService:
         self._lat: "collections.deque[float]" = collections.deque(maxlen=2048)
         warm = torch.zeros((max_batch, self._dim), device=self.device)
         self._query(warm)[0].cpu()
+
+    def _setup_ivf(self, rows, ivf_clusters, ivf_iters, ivf_max_cell,
+                   train_sample, path, prebuilt, warm_from) -> None:
+        """The inverted file: reassigned from ``warm_from``, loaded from a
+        prebuilt ``path``, or built from ``rows`` (saved to ``path`` when
+        one is given); then its centroids and cell table on the device."""
+        n = len(self.index)
+        if warm_from is not None:
+            self.ivf = warm_from.reassign(rows, max_cell=ivf_max_cell)
+            if path:
+                self.ivf.save(path)
+        elif prebuilt:
+            self.ivf = IVFIndex.load(path)
+            if (self.ivf.n_items != n
+                    or self.ivf.centroids.shape[1] != self._dim):
+                raise ValueError(
+                    f"ivf index at {path} was built for "
+                    f"{self.ivf.n_items} items dim "
+                    f"{self.ivf.centroids.shape[1]}, catalog is {n} items "
+                    f"dim {self._dim}")
+            if ivf_max_cell and self.ivf.bucket_ids.shape[1] > ivf_max_cell:
+                log.warning(
+                    "ivf_max_cell=%d ignored: prebuilt index at %s has "
+                    "Lmax=%d (built without the cap). Delete the file to "
+                    "rebuild with cells capped.", ivf_max_cell, path,
+                    self.ivf.bucket_ids.shape[1])
+        else:
+            if not ivf_clusters:
+                raise ValueError(
+                    f"ivf_index_path {path!r} does not exist and no "
+                    "ivf_clusters given to build one")
+            self.ivf = IVFIndex.build(rows, ivf_clusters, iters=ivf_iters,
+                                      max_cell=ivf_max_cell,
+                                      train_sample=train_sample)
+            if path:
+                self.ivf.save(path)
+        self._centroids = torch.from_numpy(self.ivf.centroids).to(self.device)
+        self._bucket_ids = torch.from_numpy(self.ivf.bucket_ids).to(
+            self.device)
+
+    def _setup_pq(self, rows, pq_subspaces, pq_codes, pq_iters, pq_rotate,
+                  pq_anisotropic, train_sample, path, prebuilt,
+                  warm_from) -> None:
+        """The PQ codebook: encoded against ``warm_from``, loaded from a
+        prebuilt ``path``, or trained on ``rows`` (saved to ``path`` when
+        one is given); then its centroids, rotation and codes (at
+        capacity, with a host mirror for ``add_items``) on the device."""
+        n = len(self.index)
+        if warm_from is not None:
+            self.pq = warm_from.encode(rows)
+            if path:
+                self.pq.save(path)
+        elif prebuilt:
+            self.pq = PQCodebook.load(path)
+            pq_dim = self.pq.centroids.shape[0] * self.pq.centroids.shape[2]
+            if self.pq.n_items != n or pq_dim != self._dim:
+                raise ValueError(
+                    f"pq codebook at {path} was built for {self.pq.n_items} "
+                    f"items dim {pq_dim}, catalog is {n} items dim "
+                    f"{self._dim}")
+            # only an explicit build request (pq_subspaces) warns: pq_codes
+            # alone is a build modifier whose default is no request
+            if pq_subspaces and (self.pq.n_subspaces != pq_subspaces
+                                 or self.pq.n_codes != pq_codes):
+                log.warning(
+                    "prebuilt pq codebook at %s has S=%d C=%d; requested "
+                    "S=%d C=%d ignored. Delete the file to retrain.", path,
+                    self.pq.n_subspaces, self.pq.n_codes, pq_subspaces,
+                    pq_codes)
+        else:
+            if not pq_subspaces:
+                raise ValueError(
+                    f"pq_index_path {path!r} does not exist and no "
+                    "pq_subspaces given to build one")
+            self.pq = PQCodebook.build(
+                rows, pq_subspaces, n_codes=pq_codes, iters=pq_iters,
+                rotate=pq_rotate, anisotropic_threshold=pq_anisotropic,
+                train_sample=train_sample)
+            if path:
+                self.pq.save(path)
+        self._pq_centroids = torch.from_numpy(self.pq.centroids).to(
+            self.device)
+        self._pq_rot = (None if self.pq.rotation is None else
+                        torch.from_numpy(self.pq.rotation).to(self.device))
+        self._pq_codes = self._at_capacity(torch.from_numpy(self.pq.codes))
+        if self.add_capacity:
+            # the host codes at capacity: an add writes its rows in place
+            # and republishes self.pq over a view
+            buf = np.zeros((self.capacity, self.pq.n_subspaces), np.uint8)
+            buf[:n] = self.pq.codes
+            self._pq_codes_host = buf
+            self.pq = self.pq._replace(codes=buf[:n])
 
     def _at_capacity(self, rows: torch.Tensor) -> torch.Tensor:
         """``rows`` (n, ...) on the device in a buffer of ``capacity``
@@ -231,9 +396,31 @@ class RetrievalService:
                 items_packed=self._items_packed,
                 item_scales=self._fused_scales,
                 rescore_scales=rescore_scales)
-        # the approx and int8 scans take large blocks: few scan
+        # the approx, int8 and pq scans take large blocks: few scan
         # iterations, few candidates to rescore
         big = max(self.block_size, 262_144)
+        if self.pq is not None and self.ivf is not None:
+            # probe, ADC from the codes, float32 rescore of the best
+            # oversample * k
+            return ivf_pq_topk(
+                q, self._centroids, self._bucket_ids, rescore, self.max_k,
+                nprobe=self.nprobe, pq_centroids=self._pq_centroids,
+                pq_codes=self._pq_codes, oversample=self.pq_oversample,
+                rotation=self._pq_rot, item_scales=rescore_scales,
+                item_mask=fmask)
+        if self.pq is not None:
+            return pq_topk(
+                q, self._pq_centroids, self._pq_codes, self.max_k,
+                rescore_items=rescore, block_size=big,
+                oversample=self.pq_oversample, rotation=self._pq_rot,
+                rescore_scales=rescore_scales, valid_count=valid,
+                item_mask=fmask)
+        if self.ivf is not None:
+            return ivf_topk(
+                q, self._centroids, self._bucket_ids, rescore, self.max_k,
+                nprobe=self.nprobe, q_items=self._q_items,
+                item_scales=self._scales, rescore_scales=rescore_scales,
+                item_mask=fmask)
         if self.quantized:
             return quantized_topk_over_matrix(
                 q, self._q_items, self._scales, rescore, self.max_k,
@@ -282,9 +469,11 @@ class RetrievalService:
         preallocated device buffers (``copy_`` on a slice, on the current
         stream, under the query lock, so they are ordered before the next
         query): the float32 rows, the int8 rows and scales from the host
-        quantizer (bit-identical to the device one), and the fused scan
+        quantizer (bit-identical to the device one), the fused scan
         copy's columns (and its int8 codes and scales) at the same
-        offsets. Everything is validated before any state moves, and the
+        offsets, and the rows' PQ codes, encoded against the live codebook
+        (``PQCodebook.encode``), on the device and in the host mirror.
+        Everything is validated before any state moves, and the
         host index is extended last. Returns the new catalog size. New
         rows are outside every registered filter until it is set again."""
         if not self.add_capacity:
@@ -307,6 +496,8 @@ class RetrievalService:
             dup = [i for i in str_ids if i in self.index._id2row]
             if dup or len(set(str_ids)) != len(str_ids):
                 raise ValueError(f"duplicate ids: {dup or 'within batch'}")
+            enc = (None if self.pq is None else
+                   self.pq.encode(vectors, device=self.device))
             start, end = self._n_valid, self._n_valid + n
             rows = torch.from_numpy(vectors)
             if self._items is not None:
@@ -322,6 +513,11 @@ class RetrievalService:
                     self._fused_scales[start:end].copy_(sc)
                 else:
                     self._items_packed[:, start:end].copy_(rows.T)
+            if self.pq is not None:
+                self._pq_codes[start:end].copy_(torch.from_numpy(enc.codes))
+                self._pq_codes_host[start:end] = enc.codes
+                self.pq = self.pq._replace(
+                    codes=self._pq_codes_host[:end], n_items=end)
             self._ids[start:end] = str_ids
             self.index.extend(str_ids, vectors)
             self._n_valid = end
@@ -347,8 +543,10 @@ class RetrievalService:
     def resident_bytes_per_item(self) -> int:
         """Device bytes held per catalog item: the float32 rows (unless
         rescore_int8 dropped them), the scan copy in fused mode (bf16, or
-        int8 codes and a float32 scale), and the int8 rows and scale in the
-        quantized modes. This is the number rescore_int8 shrinks."""
+        int8 codes and a float32 scale), the int8 rows and scale (the
+        quantized modes and rescore_int8), an IVF table slot and the PQ
+        codes; centroids are not counted. This is the number rescore_int8
+        shrinks: D=64 pq S=8 goes 264 -> 76."""
         b = 0
         if self._items is not None:
             b += 4 * self._dim
@@ -357,6 +555,10 @@ class RetrievalService:
                   else 2 * self._dim)
         if self._q_items is not None:
             b += self._dim + 4
+        if self.ivf is not None:
+            b += 4  # one int32 cell slot per item (before padding)
+        if self.pq is not None:
+            b += self.pq.bytes_per_item
         return b
 
     @property
@@ -364,6 +566,18 @@ class RetrievalService:
         """Human-readable name of the active catalog-scan mode."""
         r8 = "+r8" if self.rescore_int8 else ""  # int8 rescore, f32-free
         q8 = "+int8" if self.quantized else ""
+        if self.pq is not None:
+            rot = "+rotated" if self.pq.rotation is not None else ""
+            aniso = (f"+aniso={self.pq.anisotropic_threshold:g}"
+                     if self.pq.anisotropic_threshold is not None else "")
+            pq_part = (f"pq:S={self.pq.n_subspaces}{rot}{aniso}"
+                       f":oversample={self.pq_oversample}{r8}")
+            if self.ivf is not None:
+                return (f"ivf:{self.ivf.n_clusters}:nprobe={self.nprobe}"
+                        f"+{pq_part}")
+            return pq_part
+        if self.ivf is not None:
+            return f"ivf:{self.ivf.n_clusters}:nprobe={self.nprobe}{q8}{r8}"
         if self.fused:
             return f"fused:bins={self._fused_bins}{q8}{r8}"
         if self.quantized:
@@ -787,8 +1001,14 @@ class RetrievalHTTPServer(ThreadingHTTPServer):
                      aux: str = "rebuild") -> None:
         """Swap in the catalog at ``index_path`` (default: the serving
         path) with no downtime. ``aux`` says how IVF/PQ structures follow
-        the catalog (``"rebuild"`` or ``"reuse"``); the ported modes hold
-        none, so both build the same service. A server started from an
+        the catalog: ``"rebuild"`` trains them anew for the new vectors,
+        ``"reuse"`` keeps the running service's centroids and codebooks
+        and pays one assign or encode pass (``IVFIndex.reassign``,
+        ``PQCodebook.encode``); a service without them builds the same
+        either way. A configured ``ivf_index_path``/``pq_index_path`` is
+        rewritten with the new structures, never loaded (it was built for
+        the old catalog), and the build parameters a prebuilt file implied
+        are carried from the running service. A server started from an
         :class:`EmbeddingIndex` object has no path to reload from, and a
         reload without one raises ValueError."""
         if aux not in ("rebuild", "reuse"):
@@ -800,10 +1020,45 @@ class RetrievalHTTPServer(ThreadingHTTPServer):
                     "this server was started from an EmbeddingIndex "
                     "object, not a path: pass 'index' to reload")
             index = EmbeddingIndex.load(path)
-            service = RetrievalService(index, **self._service_kwargs)
+            kwargs = dict(self._service_kwargs)
+            old, old_batcher = self._serving
+            if aux == "reuse":
+                if old.ivf is not None:
+                    kwargs["ivf_warm_from"] = old.ivf
+                if old.pq is not None:
+                    kwargs["pq_warm_from"] = old.pq
+            ivf_path = _npz_path(kwargs.pop("ivf_index_path", None))
+            pq_path = _npz_path(kwargs.pop("pq_index_path", None))
+            if ivf_path and not kwargs.get("ivf_clusters"):
+                # derived once and kept: with ivf_max_cell the running
+                # count is the post-split one, and deriving it at every
+                # reload would ratchet C upward
+                kwargs["ivf_clusters"] = old.ivf.n_clusters
+                self._service_kwargs["ivf_clusters"] = old.ivf.n_clusters
+            if pq_path and not kwargs.get("pq_subspaces"):
+                carried = dict(pq_subspaces=old.pq.n_subspaces,
+                               pq_codes=old.pq.n_codes,
+                               pq_rotate=old.pq.rotation is not None,
+                               pq_anisotropic=old.pq.anisotropic_threshold)
+                kwargs.update(carried)
+                self._service_kwargs.update(carried)
+            service = RetrievalService(index, **kwargs)
+            if ivf_path and service.ivf is not None:
+                service.ivf.save(ivf_path)
+            if pq_path and service.pq is not None:
+                service.pq.save(pq_path)
+            if (old.pq is not None and service.pq is not None
+                    and (old.pq.n_subspaces, old.pq.n_codes)
+                    != (service.pq.n_subspaces, service.pq.n_codes)):
+                log.warning("reload changed pq S=%d C=%d -> S=%d C=%d",
+                            old.pq.n_subspaces, old.pq.n_codes,
+                            service.pq.n_subspaces, service.pq.n_codes)
+            if (old.ivf is not None and service.ivf is not None
+                    and old.ivf.n_clusters != service.ivf.n_clusters):
+                log.warning("reload changed ivf C=%d -> C=%d",
+                            old.ivf.n_clusters, service.ivf.n_clusters)
             batcher = (QueryBatcher(service, max_wait_ms=self._max_wait_ms)
                        if self._coalesce else None)
-            old_batcher = self.batcher
             self._serving = (service, batcher)  # one assignment
             self.index_path = path
             self.reloads += 1
@@ -828,7 +1083,7 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
           filters: Optional[Dict[str, Sequence[str]]] = None,
           admin_token: Optional[str] = None,
           device: Optional[Union[str, torch.device]] = None,
-          **unported) -> RetrievalHTTPServer:
+          **options) -> RetrievalHTTPServer:
     """Build the service and return a ready (not yet running) HTTP server.
 
     ``index`` is an index file path (``.npz``/``.json``) or an
@@ -839,8 +1094,10 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
     ``approx`` selects candidates as ``approx_max_k`` does at
     ``recall_target``; ``quantized`` scans the catalog in int8 with a
     float32 rescore (composes with ``approx``); ``rescore_int8`` on top of
-    it keeps no float32 catalog on the device; ``add_capacity`` leaves room
-    for ``/admin/add_items``."""
+    it (or of a pq mode) keeps no float32 catalog on the device;
+    ``add_capacity`` leaves room for ``/admin/add_items``. ``options`` are
+    :class:`RetrievalService`'s IVF and PQ keywords (``ivf_clusters``,
+    ``nprobe``, ``pq_subspaces``, ``ivf_index_path``, ...)."""
     index_path = index if isinstance(index, str) else None
     if index_path is not None:
         index = EmbeddingIndex.load(index_path)
@@ -849,7 +1106,7 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
                           fused_bins=fused_bins, quantized=quantized,
                           rescore_int8=rescore_int8,
                           add_capacity=add_capacity, filters=filters,
-                          device=device, **unported)
+                          device=device, **options)
     service = RetrievalService(index, **service_kwargs)
     batcher = QueryBatcher(service, max_wait_ms=max_wait_ms) if coalesce else None
     httpd = RetrievalHTTPServer((host, port), _Handler)
@@ -892,13 +1149,55 @@ def main(argv=None):
     p.add_argument("--rescore_int8", action="store_true",
                    help="drop the resident float32 catalog: the rescore "
                         "dequantizes int8 rows instead (requires "
-                        "--quantized); residency falls to D+4 bytes/item "
-                        "(2*(D+4) with --fused) vs 4*D+; returned scores "
-                        "carry <=0.4%%-of-row-max int8 rounding")
+                        "--quantized or a pq mode); residency falls to D+4 "
+                        "bytes/item (int8), S+D+4 (pq), 2*(D+4) with "
+                        "--fused, vs 4*D+; returned scores carry "
+                        "<=0.4%%-of-row-max int8 rounding. With prebuilt "
+                        "--ivf_index/--pq_index files no float32 catalog "
+                        "reaches the device")
+    p.add_argument("--ivf_clusters", type=int, default=0,
+                   help="k-means the catalog into this many cells at "
+                        "startup and probe --nprobe cells per query "
+                        "(sublinear; composes with --quantized)")
+    p.add_argument("--nprobe", type=int, default=8)
+    p.add_argument("--ivf_iters", type=int, default=20,
+                   help="k-means iterations of a fresh IVF build")
+    p.add_argument("--build_train_sample", type=int, default=0,
+                   help="train the startup IVF/PQ k-means on this many "
+                        "sampled rows (one full assign or encode pass "
+                        "still runs)")
+    p.add_argument("--ivf_max_cell", type=int, default=0,
+                   help="cap an IVF cell's rows by balanced median splits, "
+                        "shrinking the padded probe width nprobe x Lmax "
+                        "every query pays")
+    p.add_argument("--ivf_index", default="",
+                   help="a prebuilt inverted file (.npz): loaded if it "
+                        "exists, else built from --ivf_clusters and saved "
+                        "there")
+    p.add_argument("--pq_subspaces", type=int, default=0,
+                   help="scan PQ codes of this many bytes per item with a "
+                        "float32 candidate rescore; exclusive with --approx "
+                        "and --quantized; with --ivf_clusters it is IVF-PQ")
+    p.add_argument("--pq_codes", type=int, default=256,
+                   help="PQ codebook entries per subspace (<=256)")
+    p.add_argument("--pq_iters", type=int, default=15,
+                   help="PQ codebook k-means iterations")
+    p.add_argument("--pq_oversample", type=int, default=64,
+                   help="rescore about oversample*max_k candidates")
+    p.add_argument("--pq_rotate", action="store_true",
+                   help="train the codebook in a seeded random orthonormal "
+                        "rotation of the space (queries rotated at search)")
+    p.add_argument("--pq_anisotropic", type=float, default=0.0,
+                   help="train the codebook under the score-aware loss "
+                        "with this threshold T (T >= 1/sqrt(dim); 0: off)")
+    p.add_argument("--pq_index", default="",
+                   help="a prebuilt PQ codebook (.npz): loaded if it "
+                        "exists, else trained from --pq_subspaces and "
+                        "saved there")
     p.add_argument("--add_capacity", type=int, default=0,
                    help="preallocate this many extra catalog rows so POST "
                         "/admin/add_items can append items live, written in "
-                        "place (full-scan modes)")
+                        "place (full-scan modes: exact, approx, int8, pq)")
     p.add_argument("--filters_json", default="",
                    help='JSON {"name": ["catalog id", ...]} or a file of it; '
                         "'{}' enables filters with none registered yet")
@@ -918,7 +1217,16 @@ def main(argv=None):
           recall_target=args.recall_target, fused=args.fused,
           fused_bins=args.fused_bins, quantized=args.quantized,
           rescore_int8=args.rescore_int8, add_capacity=args.add_capacity,
-          filters=filters,
+          filters=filters, ivf_clusters=args.ivf_clusters or None,
+          nprobe=args.nprobe, ivf_iters=args.ivf_iters,
+          ivf_max_cell=args.ivf_max_cell or None,
+          build_train_sample=args.build_train_sample or None,
+          ivf_index_path=args.ivf_index or None,
+          pq_subspaces=args.pq_subspaces or None, pq_codes=args.pq_codes,
+          pq_iters=args.pq_iters, pq_oversample=args.pq_oversample,
+          pq_rotate=args.pq_rotate,
+          pq_anisotropic=args.pq_anisotropic or None,
+          pq_index_path=args.pq_index or None,
           admin_token=args.admin_token or None,
           device=args.device).serve_forever()
 

@@ -128,6 +128,16 @@ class TrainRunConfig(ServingRunConfig):
     cycle_steps: int = 500
     deploy_serve_mode: str = "exact"
     recall_target: float = 0.95
+    # the deploy server's IVF/PQ knobs (serving_bench.mode_kwargs)
+    ivf_clusters: int = 4096
+    nprobe: int = 64
+    ivf_iters: int = 10
+    ivf_max_cell: int = 0
+    pq_subspaces: int = 8
+    pq_oversample: int = 64
+    pq_rotate: bool = False
+    pq_anisotropic: float = 0.0
+    build_train_sample: int = 0
     deploy_quality_queries: int = 0
     deploy_quality_k: int = 100
     deploy_reload_aux: str = "rebuild"
@@ -482,9 +492,9 @@ def deploy_loop(run: TrainRunConfig, corpus: Dict[str, np.ndarray], state,
     into the running server, ``run.deploy_serve_mode`` (a
     ``serving_bench.MODES`` name). Per cycle: ``retrain_s``,
     ``embed_and_save_s``, ``reload_s`` (upload, quantize or scan copy,
-    warm-up query), ``artifact_to_live_s`` (the last two), ``probe_hit``
-    (item 17's own vector returns it in its top 10, asserted: every ported
-    mode scans the full catalog) and, with ``run.deploy_quality_queries``,
+    IVF/PQ builds, warm-up query), ``artifact_to_live_s`` (the last two), ``probe_hit``
+    (item 17's own vector returns it in its top 10, asserted in every mode,
+    as the reference does) and, with ``run.deploy_quality_queries``,
     ``overlap_at_k`` of the live answers (:func:`live_overlap`)."""
     track_ids = [str(i) for i in range(run.num_tracks)]
 
@@ -603,16 +613,35 @@ def main(argv=None) -> dict:
     p.add_argument("--cycle_steps", type=int, default=500)
     p.add_argument("--deploy_serve_mode", default="exact",
                    choices=serving_bench.MODES,
-                   help="the live server's retrieval mode (the ivf and pq "
-                        "modes are not ported yet and raise)")
+                   help="the live server's retrieval mode; in the ivf and "
+                        "pq modes a reload's seconds include the structures' "
+                        "rebuild (or, with --deploy_reload_aux reuse, their "
+                        "assign and encode passes)")
     p.add_argument("--recall_target", type=float, default=0.95)
+    p.add_argument("--ivf_clusters", type=int, default=4096)
+    p.add_argument("--nprobe", type=int, default=64)
+    p.add_argument("--ivf_iters", type=int, default=10)
+    p.add_argument("--ivf_max_cell", type=int, default=0)
+    p.add_argument("--pq_subspaces", type=int, default=8)
+    p.add_argument("--pq_oversample", type=int, default=64)
+    p.add_argument("--pq_rotate", action="store_true")
+    p.add_argument("--pq_anisotropic", type=float, default=0.0,
+                   help="score-aware PQ training threshold T of the deploy "
+                        "server (0: off)")
+    p.add_argument("--build_train_sample", type=int, default=0,
+                   help="train the deploy server's IVF/PQ k-means on this "
+                        "many sampled rows")
     p.add_argument("--deploy_quality_queries", type=int, default=0,
                    help="after each reload, the live answers' overlap@k "
                         "against an exact top-k over the new catalog on "
                         "this many near-catalog queries (0: off)")
     p.add_argument("--deploy_quality_k", type=int, default=100)
     p.add_argument("--deploy_reload_aux", default="rebuild",
-                   choices=["rebuild", "reuse"])
+                   choices=["rebuild", "reuse"],
+                   help="rebuild retrains the IVF/PQ structures at each "
+                        "reload; reuse keeps the live centroids and "
+                        "codebooks and pays only the assign and encode "
+                        "passes")
     args = p.parse_args(argv)
     cfg = TrainRunConfig(
         out_dir=args.out_dir, num_tracks=args.corpus_size,
@@ -630,6 +659,11 @@ def main(argv=None) -> dict:
         deploy_cycles=args.deploy_cycles, cycle_steps=args.cycle_steps,
         deploy_serve_mode=args.deploy_serve_mode,
         recall_target=args.recall_target,
+        ivf_clusters=args.ivf_clusters, nprobe=args.nprobe,
+        ivf_iters=args.ivf_iters, ivf_max_cell=args.ivf_max_cell,
+        pq_subspaces=args.pq_subspaces, pq_oversample=args.pq_oversample,
+        pq_rotate=args.pq_rotate, pq_anisotropic=args.pq_anisotropic,
+        build_train_sample=args.build_train_sample,
         deploy_quality_queries=args.deploy_quality_queries,
         deploy_quality_k=args.deploy_quality_k,
         deploy_reload_aux=args.deploy_reload_aux)

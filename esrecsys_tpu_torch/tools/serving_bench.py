@@ -12,18 +12,23 @@ path, ``RetrievalService.topk`` (HTTP framing excluded):
   quantized_approx int8 scan + approx_max_k selection
   quantized_r8     int8 scan + int8 rescore: no float32 catalog
   filtered         exact, every query under a 50% eligibility filter
-  ivf, ivf_quantized, pq, ivf_pq, pq_r8, ivf_pq_r8
-                   the IVF and PQ modes: not ported yet, so selecting one
-                   raises the service's NotImplementedError naming its
-                   option
+  ivf              k-means inverted file, nprobe cells per query
+                   (``--ivf_max_cell`` caps a cell's rows)
+  ivf_quantized    ivf probe, candidates scored from int8 rows
+  pq               PQ ADC scan of S-byte codes + float32 rescore
+                   (``--pq_subspaces/--pq_oversample/--pq_rotate``)
+  ivf_pq           ivf probe + ADC candidate scoring + float32 rescore
+  pq_r8            PQ ADC scan + int8 rescore (S+D+4 bytes/item)
+  ivf_pq_r8        ivf probe + ADC + int8 rescore (no float32 catalog)
 
 Reported per mode: ``queries_per_s`` (host clock, ``--reps`` passes over
 ``--queries`` queries in ``--batch`` chunks), ``overlap_vs_exact`` (mean
 share of the exact mode's ids, on ``--overlap_queries`` queries; the
 filtered mode against the exact top-k of its eligible rows),
-``setup_s`` (upload, quantize, scan copy, warm-up query) and
-``resident_bytes_per_item``. Latency percentiles live in the server's
-``/statsz``.
+``setup_s`` (upload, quantize, scan copy, k-means builds, warm-up query)
+and ``resident_bytes_per_item``; the IVF modes add ``ivf_imbalance`` and
+``ivf_lmax``, the PQ modes ``pq_bytes_per_item``. Latency percentiles
+live in the server's ``/statsz``.
 
 Catalogs are synthetic: Gaussian by default, ``--structured`` a mixture
 of components (clusterable, like trained embeddings).
@@ -31,9 +36,10 @@ of components (clusterable, like trained embeddings).
 Run (card): python -m esrecsys_tpu_torch.tools.serving_bench \\
     --items 2262292 --dim 64 --k 500 --batch 256 \\
     --modes exact,approx,fused,fused_q8,fused_q8_r8,quantized,\\
-quantized_approx,quantized_r8,filtered
+quantized_approx,quantized_r8,filtered,ivf,ivf_quantized,pq,ivf_pq,\\
+pq_r8,ivf_pq_r8
 Smoke (CPU): --device cpu --items 20000 --queries 256 --batch 32 --k 50 \\
-    --modes exact,approx,quantized
+    --ivf_clusters 64 --nprobe 8 --modes exact,approx,quantized,ivf,pq
 """
 
 from __future__ import annotations
@@ -173,6 +179,11 @@ def bench_mode(mode: str, index, queries: np.ndarray, k: int, args,
     out = {"mode": mode, "queries_per_s": round(qps, 1),
            "overlap_vs_exact": overlap, "setup_s": round(setup_s, 2),
            "resident_bytes_per_item": svc.resident_bytes_per_item}
+    if svc.ivf is not None:
+        out["ivf_imbalance"] = round(svc.ivf.imbalance, 2)
+        out["ivf_lmax"] = int(svc.ivf.bucket_ids.shape[1])
+    if svc.pq is not None:
+        out["pq_bytes_per_item"] = svc.pq.bytes_per_item
     return out, ids
 
 

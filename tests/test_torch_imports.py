@@ -50,7 +50,9 @@ def test_port_has_the_slice_modules():
                 "core/tracking.py", "core/profiling.py", "data/vocab.py",
                 "data/tfrecord.py", "data/pipelines.py", "data/prefetch.py",
                 "train/checkpoint.py", "train/preemption.py",
-                "etl/playlists.py", "tools/serving_bench.py"):
+                "etl/playlists.py", "tools/serving_bench.py",
+                "retrieval/ivf.py", "retrieval/pq.py",
+                "tools/retrieval_quality_study.py"):
         assert (PORT / rel).is_file(), rel
 
 
@@ -72,7 +74,10 @@ def test_import_leaves_jax_unloaded():
             "esrecsys_tpu_torch.tools.scatter_attempt, "
             "esrecsys_tpu_torch.etl.playlists, "
             "esrecsys_tpu_torch.data.pipelines, "
-            "esrecsys_tpu_torch.train.checkpoint; "
+            "esrecsys_tpu_torch.train.checkpoint, "
+            "esrecsys_tpu_torch.retrieval.ivf, "
+            "esrecsys_tpu_torch.retrieval.pq, "
+            "esrecsys_tpu_torch.tools.retrieval_quality_study; "
             "print(sorted(m for m in sys.modules if any(m == f or "
             f"m.startswith(f + '.') for f in {FORBIDDEN!r})))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -242,13 +242,17 @@ def test_http_round_trip_matches_jax(catalog):
     ("add_capacity", 10), ("encoders", {"text": len})])
 def test_unported_modes_raise(catalog, option, value):
     """Each reference option that selects a mode the port lacks raises
-    NotImplementedError naming it; approx and add_capacity are ported
-    now, and construct with the reference's mode and capacity."""
+    NotImplementedError naming it; approx, add_capacity, ivf_clusters and
+    pq_subspaces are ported now, and construct with the reference's mode
+    and capacity."""
     ids, vecs, _, _ = catalog
-    if option in ("approx", "add_capacity"):
+    if option in ("approx", "add_capacity", "ivf_clusters", "pq_subspaces"):
         svc = tserver.RetrievalService(EmbeddingIndex(ids, vecs),
                                        device="cpu", **{option: value})
-        assert svc.mode == ("approx" if option == "approx" else "exact")
+        mode = {"approx": "approx", "add_capacity": "exact",
+                "ivf_clusters": f"ivf:{value}:nprobe=8",
+                "pq_subspaces": f"pq:S={value}:oversample=64"}[option]
+        assert svc.mode == mode
         assert svc.capacity == M + (value if option == "add_capacity" else 0)
         return
     with pytest.raises(NotImplementedError,

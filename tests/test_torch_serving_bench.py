@@ -26,6 +26,9 @@ from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
 from esrecsys_tpu_torch.tools import full_scale_run as tfsr
 from esrecsys_tpu_torch.tools import serving_bench as tsb
 
+# the full-scan modes, whose answers equal the JAX bench's; the IVF and
+# PQ modes train their structures from seeds the two packages draw apart
+# (tests/test_torch_serving_ivfpq.py holds them to JAX on shared ones)
 PORTED = ("exact", "approx", "fused", "fused_q8", "fused_q8_r8",
           "quantized", "quantized_approx", "quantized_r8", "filtered")
 UNPORTED = {"ivf": "ivf_clusters", "ivf_quantized": "ivf_clusters",
@@ -123,10 +126,28 @@ def test_serving_bench_rejects_unknown_mode(tmp_path):
 
 @pytest.mark.parametrize("mode", sorted(UNPORTED))
 def test_unported_modes_raise_naming_their_option(tmp_path, mode):
-    with pytest.raises(NotImplementedError, match=UNPORTED[mode]):
-        tsb.main(["--items", "300", "--dim", "8", "--queries", "4",
-                  "--batch", "4", "--k", "5", "--device", "cpu",
-                  "--modes", mode, "--out", str(tmp_path / "x.json")])
+    """The IVF and PQ modes, unported before, now run in the bench and
+    report the reference's keys: ivf_imbalance and ivf_lmax for the IVF
+    modes, pq_bytes_per_item for the PQ ones, and an overlap over the
+    reference's smoke floor."""
+    res = tsb.main(["--items", "2000", "--dim", "8", "--queries", "16",
+                    "--batch", "8", "--k", "10", "--reps", "1",
+                    "--structured", "--ivf_clusters", "16", "--nprobe", "8",
+                    "--ivf_iters", "3", "--pq_subspaces", "4",
+                    "--pq_oversample", "16", "--device", "cpu",
+                    "--modes", f"exact,{mode}", "--out",
+                    str(tmp_path / "x.json")])
+    r = res["results"][1]
+    assert r["mode"] == mode and r["overlap_vs_exact"] >= 0.8, r
+    keys = {"mode", "queries_per_s", "overlap_vs_exact", "setup_s",
+            "resident_bytes_per_item"}
+    if UNPORTED[mode] == "ivf_clusters":
+        keys |= {"ivf_imbalance", "ivf_lmax"}
+        assert r["ivf_imbalance"] >= 1.0 and r["ivf_lmax"] >= 2000 // 16
+    if "pq" in mode:
+        keys |= {"pq_bytes_per_item"}
+        assert r["pq_bytes_per_item"] == 4
+    assert set(r) == keys
 
 
 @pytest.mark.parametrize("mode", ["exact", "approx"])
