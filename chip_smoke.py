@@ -112,10 +112,35 @@ the result line:
                 tensors freed, gather_pool and scatter_add against their
                 plain versions on a 100M x 32 float32 table (row offsets
                 past 2^31 elements) and scale_table at that width with
-                momentum 0.98.
+                momentum 0.98;
+  12. bf16    - bf16 tables: gather_pool's bf16 and narrow instantiations
+                (bf16 D in 8, 32, 64, 128 and 1, 3, 12; float32 D 1, 3, 6;
+                tables one element off a 16-byte boundary) bit-equal to
+                their plain versions at K=1, scatter_add's bf16 ones (D 32,
+                64, 128 vector, 1, 3, 8 generic) bit-equal on rows hit once
+                and within a bf16 bound on rows hit more, at an exactly
+                representable pile-up bit-equal and at a random one within
+                the bound; both on a 100M x 32 bf16 table; then the main
+                path, scale_table --dtype bfloat16 at 100M x 32 with
+                momentum 0 and 0.98 (rows/s, ms/step, peak memory under 14
+                GB), the row kernels timed at its step's shapes, and 20
+                lazy steps on a 1M x 32 bf16 table with bf16 moments
+                against the same steps through the plain versions;
+  13. glove   - the GloVe trainer at the reference's width (565,537 tokens
+                padded to 565,632 x 64, B=2048, lr 5e-4): a 500,000-token
+                dictionary and 200,000 co-occurrence triples with Zipf ids
+                written by the port's recordio; workloads/glove.train()
+                for 20 steps under adam and under lazy_adam, each with one
+                eval round of 50 batches (its loss below the init's), the
+                knn hook on the six probe terms, a checkpoint restored bit
+                for bit and the export; each step on the host clock with
+                the device's busy share; the row kernels at the step's
+                shapes (D=64 and D=1); the dense step against its
+                plain-version twin for 5 steps.
 
 Each main-path phase (train, harness, serve, int8, modes, sublinear, tool,
-lazy) sets the launch counts to 0 just before it and reads them just after.
+lazy, bf16's scale_table runs, glove's train() runs) sets the launch
+counts to 0 just before it and reads them just after.
 A line gives the seconds each phase took. The second-to-last line is the
 kernel table as JSON, the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -126,7 +151,9 @@ result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -2883,12 +2910,14 @@ def carrier_cost(card: str, work: str, buckets: int) -> dict:
     return {c: [r[0] for r in rows] for c, rows in out.items()}
 
 
-def check_big_table(card: str, rows: int, dim: int, n: int) -> float:
+def check_big_table(card: str, rows: int, dim: int, n: int,
+                    dtype: str = "float32") -> float:
     """gather_pool and scatter_add against their plain versions on a
-    (rows, dim) float32 table, with ids above 2^26 so that row offsets
+    (rows, dim) table of ``dtype``, with ids above 2^26 so that row offsets
     pass 2^31 elements; only the touched rows are compared (and their
-    untouched neighbours), so nothing table-sized is copied. Returns the
-    largest difference."""
+    untouched neighbours), so nothing table-sized is copied. float32 rows
+    agree within TOL; bf16 rows hit once are bit-equal and rows hit more
+    within ``bf16_scatter_bound``. Returns the largest difference."""
     import torch
 
     from esrecsys_tpu_torch.kernels import gather_pool as gp
@@ -2896,7 +2925,8 @@ def check_big_table(card: str, rows: int, dim: int, n: int) -> float:
     from esrecsys_tpu_torch.tools import scale_table as st
 
     dev = torch.device("cuda")
-    cfg = st.ScaleConfig(rows=rows, dim=dim, ids_per_step=n, device="cuda")
+    cfg = st.ScaleConfig(rows=rows, dim=dim, ids_per_step=n, device="cuda",
+                         dtype=dtype)
     table, _ = st.init(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     ids = torch.randint(0, rows, (n,), generator=gen, device=dev,
@@ -2921,14 +2951,18 @@ def check_big_table(card: str, rows: int, dim: int, n: int) -> float:
     before, nb_before = table[uniq.long()], table[nb]
     upd = torch.randn((n, dim), generator=gen, device=dev) * 1e-3
     sa.scatter_add_cuda(table, ids, upd)
-    want = sa.scatter_add_plain(before.clone(), inv.to(torch.int32), upd)
+    inv = inv.to(torch.int32)
+    want = sa.scatter_add_plain(before.clone(), inv, upd)
     got = table[uniq.long()]
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    err = float((got.float() - want.float()).abs().max())
+    if table.dtype == torch.bfloat16:
+        check_bf16_scatter(got, want, before, inv, upd, "big table")
+    else:
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
     if not torch.equal(table[nb], nb_before):
         raise AssertionError("scatter_add wrote an untouched row")
-    log(f"kernel gather_pool and scatter_add on a {rows} x {dim} float32 "
+    log(f"kernel gather_pool and scatter_add on a {rows} x {dim} {dtype} "
         f"table ({rows * dim / 2 ** 31:.2f} x 2^31 elements), {n} ids up to "
         f"{int(ids.max())} (offsets to {int(ids.max()) * dim} elements): "
         f"gather equal, scatter max_abs_err {err:.3g} over "
@@ -3140,14 +3174,15 @@ def phase_lazy(card: str, dense: dict) -> dict:
     # ---- 5. scale_table at 100M rows, the earlier phases' tensors freed
     gc.collect()
     torch.cuda.empty_cache()
-    out["big_err"] = check_big_table(card, SCALE_ROWS, 32, SCALE_IDS)
+    out["big_err"] = check_big_table(card, SCALE_ROWS, 32, SCALE_IDS,
+                                     "float32")
     gc.collect()
     torch.cuda.empty_cache()
     for mod in (gp, sa):
         mod.LAUNCHES.reset()
     scale = st.run(st.ScaleConfig(
-        rows=SCALE_ROWS, dim=32, ids_per_step=SCALE_IDS, momentum=0.98,
-        calls=5, device="cuda"))
+        rows=SCALE_ROWS, dim=32, dtype="float32", ids_per_step=SCALE_IDS,
+        momentum=0.98, calls=5, device="cuda"))
     scale_launches = {"gather_pool": gp.LAUNCHES.count,
                       "scatter_add": sa.LAUNCHES.count}
     if min(scale_launches.values()) <= 0 or not scale["value"] > 0 \
@@ -3162,6 +3197,813 @@ def phase_lazy(card: str, dense: dict) -> dict:
         f"[{scale['card']}]")
     out["scale"] = scale
     return out
+
+
+# ------------------------------------------------------------------ bf16
+
+# bf16 scatter-adds: a row hit once is exactly round(t + round(u)) in both
+# versions, so bit-equal; a row hit k times rounds at each of the kernel's
+# reductions into it (at most k) and at each merged sum's rounding, in an
+# order that changes from run to run, and the plain version sums in float32
+# and rounds once. Both must lie within k (ulp(M) + M 2^-22) of the exact
+# float64 sum, where M = |t| + sum |round(u)| bounds every partial sum.
+LAZY_BF16_ROWS = 1_000_000    # the lazy bf16 check's table: 1M x 32
+# ids of the bounded random pile-up: 64 of the kernel's reductions into one
+# bf16 row, few enough that the bound below is a third of the sum
+BF16_PILE_IDS = 2_048
+SCALE_BF16_PEAK_GB = 14.0     # scale_table bf16 at 100M x 32, momentum 0.98
+
+
+def bf16_ulp(x):
+    """The bf16 ulp at |x| (float64 out; subnormals as the least normal)."""
+    import torch
+
+    mag = x.double().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def bf16_scatter_bound(before, ids, upd):
+    """(exact float64 sum, per-element bound, adds per row) of a bf16
+    scatter-add of float32 ``upd`` at ``ids`` into ``before``; see above."""
+    import torch
+
+    R = before.shape[0]
+    keep = (ids >= 0) & (ids < R)
+    idx = ids[keep].long()
+    ub = upd[keep].to(torch.bfloat16).double()
+    exact = before.double().index_add(0, idx, ub)
+    mag = before.double().abs().index_add(0, idx, ub.abs())
+    adds = torch.bincount(idx, minlength=R).double()[:, None]
+    return exact, adds * (bf16_ulp(mag) + mag * 2.0 ** -22), adds[:, 0]
+
+
+def check_bf16_scatter(got, plain, before, ids, upd, what: str) -> float:
+    """A bf16 scatter-add's kernel result ``got`` and plain result
+    ``plain`` from ``before``: rows hit once bit-equal, rows hit more
+    within ``bf16_scatter_bound`` of the exact sum, rows hit never
+    unchanged. Returns the largest difference of ``got`` from the exact
+    sum in units of its bound (0 when no row is hit twice)."""
+    import torch
+
+    exact, bound, adds = bf16_scatter_bound(before, ids, upd)
+    once = adds == 1
+    if not torch.equal(got[once], plain[once]):
+        raise AssertionError(f"{what}: rows hit once differ between kernel "
+                             f"and plain")
+    if not torch.equal(got[adds == 0], before[adds == 0]):
+        raise AssertionError(f"{what}: rows no id touches changed")
+    worst = 0.0
+    for name, t in (("kernel", got), ("plain", plain)):
+        over = (t.double() - exact).abs() / bound.clamp(min=1e-300)
+        bad = (adds[:, None] > 1) & (over > 1)
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: {name} off the exact sum by "
+                                 f"{float(over[bad].max()):.3g} bounds")
+        if name == "kernel" and bool((adds > 1).any()):
+            worst = float(over[adds > 1].max())
+    return worst
+
+
+def pileup_bound(row, upd, rows_per_warp: int):
+    """Per-element bound on |kernel - exact sum| for a bf16 scatter-add of
+    float32 ``upd`` (n, D) all onto one row that starts at ``row``. The
+    kernel merges each warp's ``rows_per_warp`` consecutive updates,
+    rounded to bf16, in float32 (error within gamma_31(2^-24) of their
+    magnitudes), rounds the merged sum to bf16 once (2^-8 of it) and
+    sends it as one of r = ceil(n / rows_per_warp) reductions, each
+    rounding in bf16 in any order: recursive summation of r + 1 terms,
+    within gamma_r(2^-8) (|row| + sum of their magnitudes), gamma_r(u) =
+    r u / (1 - r u) (Higham, Accuracy and Stability, 4.3)."""
+    def gamma(r, u):
+        return r * u / (1 - r * u)
+
+    n = upd.shape[0]
+    r = -(-n // rows_per_warp)
+    mass = upd.to(row.dtype).double().abs().sum(0)   # sum |round(u)|
+    merged = mass * (1 + 2.0 ** -8) * (1 + gamma(rows_per_warp, 2.0 ** -24))
+    return (gamma(r, 2.0 ** -8) * (row.double().abs() + merged)
+            + merged - mass)
+
+
+def check_bf16_kernels(card: str) -> dict:
+    """gather_pool's bf16 and narrow instantiations and scatter_add's bf16
+    ones against their plain versions, at ragged shapes and edge cases."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    R = 100_003
+    g_err = 0.0
+    taken = set()
+    cases = [(torch.bfloat16, D, False) for D in (8, 32, 64, 128, 1, 3, 12)]
+    cases += [(torch.float32, D, False) for D in (1, 3, 6)]
+    cases += [(torch.bfloat16, 32, True), (torch.float32, 32, True)]
+    for dtype, D, off in cases:
+        buf = torch.randn(R * D + 1, generator=gen, device="cuda").to(dtype)
+        # one element off a 16-byte boundary: the narrow instantiation
+        table = (buf[1:] if off else buf[:-1]).view(R, D)
+        for B, K, mean, mask_id in ((1, 1, False, -1), (777, 1, False, -1),
+                                    (13, 5, True, 0), (1000, 5, False, 0)):
+            ids = torch.randint(-3, R + 7, (B, K), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            ids[0, 0] = mask_id
+            taken.add(gp.launch_plan(D, dtype, table.data_ptr()))
+            k = gp.gather_pool_cuda(table, ids, mean, mask_id)
+            p = gp.gather_pool_plain(table, ids, mean, mask_id)
+            torch.cuda.synchronize()
+            if K == 1 and not torch.equal(k, p):
+                raise AssertionError(f"gather_pool {dtype} D={D} B={B} "
+                                     f"differs")
+            torch.testing.assert_close(k, p, rtol=POOL_TOL, atol=POOL_TOL)
+            g_err = max(g_err, float((k - p).abs().max()))
+    if taken != {gp.BF16X8, gp.NARROW_F32, gp.NARROW_BF16}:
+        raise AssertionError(f"gather_pool instantiations taken: {taken}")
+    # scatter_add into bf16 tables: vector (D 32, 64, 128) and generic
+    # (D 1, 3, 8, and D 32 with updates one float off a 16-byte boundary)
+    s_taken, worst, s_err = set(), 0.0, 0.0
+    for D in (32, 64, 128, 1, 3, 8):
+        table = (torch.randn(R, D, generator=gen, device="cuda")
+                 * 0.1).to(torch.bfloat16)
+        for n in (1, 777, 10_000):
+            uniq = torch.randperm(R, generator=gen, device="cuda")[:n].int()
+            if n > 2:  # dropped ids at both ends of the range
+                uniq[n // 2], uniq[-1] = -1, R
+            dup = torch.randint(0, max(n // 4, 1), (n,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            upds = [torch.randn(n, D, generator=gen, device="cuda") * 1e-2]
+            if D == 32:
+                off = torch.randn(n * D + 1, generator=gen,
+                                  device="cuda") * 1e-2
+                upds.append(off[1:].view(n, D))
+            for ids in (uniq, dup):
+                for upd in upds:
+                    k, p = table.clone(), table.clone()
+                    s_taken.add(sa.launch_plan(n, D, k.data_ptr(),
+                                               upd.data_ptr(),
+                                               torch.bfloat16)[0])
+                    sa.scatter_add_cuda(k, ids, upd)
+                    sa.scatter_add_plain(p, ids, upd)
+                    torch.cuda.synchronize()
+                    worst = max(worst, check_bf16_scatter(
+                        k, p, table, ids, upd, f"bf16 scatter D={D} n={n}"))
+                    s_err = max(s_err, float((k.float() - p.float()).abs()
+                                             .max()))
+    if s_taken != {0, 32, 64, 128}:
+        raise AssertionError(f"bf16 scatter_add instantiations: {s_taken}")
+    # exact pile-ups, every id on row 7 of a 100,096-row bf16 table, at D
+    # 32 (vector) and 1 (generic): 76,288 updates, zero but for 160 + c at
+    # random rows of column c, 100 + c of them +2^-8 and 60 of them -2^-8,
+    # onto a row that starts at (60 + c) 2^-8. Every partial sum in any
+    # order, merged in a warp or not, is a whole number of 2^-8 in
+    # [0, 222], exact in bf16 (8 significant bits), so kernel, plain and
+    # the exact sum (100 + 2c) 2^-8 must be bit-equal: an update dropped,
+    # doubled or sent to another column or row shows
+    n = 76_288
+    same = torch.full((n,), 7, dtype=torch.int32, device="cuda")
+    for D in (32, 1):
+        table = (torch.randn(100_096, D, generator=gen, device="cuda")
+                 * 0.1).to(torch.bfloat16)
+        col = torch.arange(D, device="cuda")
+        table[7] = ((60 + col) * 2.0 ** -8).to(torch.bfloat16)
+        upd = torch.zeros(n, D, device="cuda")
+        for c in range(D):
+            rows = torch.randperm(n, generator=gen, device="cuda")[:160 + c]
+            upd[rows[:100 + c], c] = 2.0 ** -8
+            upd[rows[100 + c:], c] = -2.0 ** -8
+        k = sa.scatter_add_cuda(table.clone(), same, upd)
+        p = sa.scatter_add_plain(table.clone(), same, upd)
+        torch.cuda.synchronize()
+        want = table.clone()
+        want[7] = ((100 + 2 * col) * 2.0 ** -8).to(torch.bfloat16)
+        exact, _, _ = bf16_scatter_bound(table, same, upd)
+        if not (torch.equal(k, want) and torch.equal(p, want)
+                and torch.equal(exact, want.double())):
+            raise AssertionError(f"bf16 exact pile-up D={D} differs")
+    # a random pile-up: BF16_PILE_IDS positive updates on row 7 at D=32,
+    # held to pileup_bound, built on the kernel's reductions into the row
+    D = 32
+    table = (torch.randn(100_096, D, generator=gen, device="cuda")
+             * 0.1).to(torch.bfloat16)
+    same = torch.full((BF16_PILE_IDS,), 7, dtype=torch.int32, device="cuda")
+    upd = torch.rand(BF16_PILE_IDS, D, generator=gen, device="cuda") * 1e-2
+    k = sa.scatter_add_cuda(table.clone(), same, upd)
+    p = sa.scatter_add_plain(table.clone(), same, upd)
+    torch.cuda.synchronize()
+    bound = pileup_bound(table[7], upd, rows_per_warp=32)
+    exact = table[7].double() + upd.to(torch.bfloat16).double().sum(0)
+    over = float(((k[7].double() - exact).abs() / bound).max())
+    if over > 1 or not torch.equal(torch.cat([k[:7], k[8:]]),
+                                   torch.cat([table[:7], table[8:]])):
+        raise AssertionError(f"bf16 random pile-up: {over:.3g} of its bound")
+    pile_err = float((k.float() - p.float()).abs().max())
+    s_err = max(s_err, pile_err)
+    log(f"kernel gather_pool bf16 and narrow instantiations: bf16 D in (8, "
+        f"32, 64, 128) and (1, 3, 12), float32 D in (1, 3, 6), D=32 one "
+        f"element off a 16-byte boundary in both dtypes; B in (1, 13, 777, "
+        f"1000), K in (1, 5), sum and mean, masked and clamped ids: ok, "
+        f"K=1 bit-equal, max_abs_err {g_err:.3g}; instantiations "
+        f"{sorted(gp.INSTANTIATIONS[t] for t in taken)} [{card}]")
+    log(f"kernel scatter_add into bf16 tables: D in (32, 64, 128, 1, 3, 8), "
+        f"n in (1, 777, 10000), unique ids (dropped -1 and R among them) "
+        f"and ids repeated about 4 times, D=32 also with updates off a "
+        f"16-byte boundary; instantiations {sorted(s_taken)} (0: generic): "
+        f"rows hit once bit-equal, rows hit more within "
+        f"{worst:.3g} of their bound (k (ulp(M) + M 2^-22)); 76,288 updates "
+        f"on one row at D 32 and 1, every partial sum exact: bit-equal to "
+        f"the exact sum; {BF16_PILE_IDS} positive random updates on one "
+        f"row: within {over:.3g} of the bound on the kernel's reductions "
+        f"(largest bound {float(bound.max()):.3g}, row sum up to "
+        f"{float(exact.max()):.3g}); max_abs_err against plain "
+        f"{s_err:.3g} [{card}]")
+    return {"gather_err": g_err, "scatter_err": s_err}
+
+
+def lazy_bf16_steps(card: str) -> dict:
+    """20 lazy steps at momentum 0.98 on a 1M x 32 bf16 table with bf16
+    moments (scale_table's step), with the kernels and then, from the same
+    init, with their plain versions on the card."""
+    import torch
+
+    from esrecsys_tpu_torch.tools import scale_table as st
+
+    dev = torch.device("cuda")
+    cfg = st.ScaleConfig(rows=LAZY_BF16_ROWS, dim=32, dtype="bfloat16",
+                         ids_per_step=SCALE_IDS, momentum=0.98,
+                         device="cuda")
+    states = []
+    for plain in (False, True):
+        table, state = st.init(cfg, dev)
+        step = st.make_step(cfg, table, state)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            losses = [float(step(s)) for s in range(STEPS)]
+        states.append((table, state, losses))
+    (tk, sk, lk), (tp, sp, lp) = states
+    if not torch.equal(sk["last_step"], sp["last_step"]):
+        raise AssertionError("lazy bf16: last_step differs")
+    report = {}
+    for name, a, b in (("table", tk, tp),
+                       ("momentum", sk["momentum"], sp["momentum"])):
+        report[name] = int((a != b).sum())
+        if report[name]:
+            raise AssertionError(f"lazy bf16 {name}: {report[name]} "
+                                 f"elements differ")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    log(f"lazy carrier, bf16 table and moments ({LAZY_BF16_ROWS} x 32, "
+        f"{SCALE_IDS} ids a step, momentum 0.98), {STEPS} steps with the "
+        f"kernels against the plain versions on the card from one init: "
+        f"last_step, table and momentum bit-equal; loss max relative diff "
+        f"{loss_rel:.3g} [{card}]")
+    return report
+
+
+def written_ms(fn, reps: int = 50) -> float:
+    """Device time of one call of ``fn`` in ms, its write-back to HBM
+    included. A round is a read-only pass over 128 MiB (a row-wise max),
+    the call, and another such pass (a row-wise min, so the two are told
+    apart by name). The call finds the 50 MB L2 cache cold and clean; the
+    pass after it also writes the call's dirty lines back. So the time is
+    the call's own kernel time plus how much longer the second pass takes
+    than the first, less that difference in rounds without the call
+    (each from one profiler trace, so drift between traces cancels). An
+    output that fits in the L2 so counts as written, as it does not when
+    the clock stops at the call's end (``cold_rows``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.ones((32768, 1024), dtype=torch.int32, device="cuda")
+
+    def first():
+        flush.amax(dim=1)
+
+    def second():
+        flush.amin(dim=1)
+
+    def rows(*calls) -> dict:
+        """Device ms per round, by kernel."""
+        for _ in range(3):  # see cold_rows: a trace may hold no device rows
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    for call in calls:
+                        call()
+                torch.cuda.synchronize()
+            got = {e.key: e.self_device_time_total / 1e3 / reps
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total}
+            if got:
+                return got
+        raise RuntimeError("three profiler traces held no device time")
+
+    fn()
+    second()
+    torch.cuda.synchronize()
+    first_keys = set(rows(first))
+    base = rows(first, second)
+    second_keys = set(base) - first_keys
+    timed = rows(first, fn, second)
+    if not second_keys or not first_keys <= set(timed) \
+            or not second_keys <= set(timed):
+        raise RuntimeError(f"the passes' kernels: {sorted(base)}")
+
+    def lag(r):  # how much longer the second pass takes than the first
+        return (sum(r[k] for k in second_keys)
+                - sum(r[k] for k in first_keys))
+
+    own = sum(t for k, t in timed.items()
+              if k not in first_keys and k not in second_keys)
+    return own + lag(timed) - lag(base)
+
+
+def time_row_kernels(table, ids, upd):
+    """(gather row, scatter row) at one shape: (kernel, plain, library,
+    bound) ms each, from a cold and clean L2, write-back included
+    (``written_ms``). The bound counts the distinct rows the ids touch
+    (read once; the scatter's also written once), the ids, and the
+    float32 rows out or updates in, at the HBM rate."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+
+    n, D = upd.shape
+    ids2 = ids[:, None].contiguous()
+    distinct = int(torch.unique(ids).numel()) * D * table.element_size()
+    g_bound = (distinct + n * 4 + n * D * 4) / HBM_BYTES_PER_S * 1e3
+    s_bound = (n * D * 4 + n * 4 + 2 * distinct) / HBM_BYTES_PER_S * 1e3
+    lib_upd = upd.to(table.dtype)
+    gather = tuple(written_ms(f) for f in (
+        lambda: gp.gather_pool_cuda(table, ids2, False, -1),
+        lambda: gp.gather_pool_plain(table, ids2, False, -1),
+        lambda: table.index_select(0, ids))) + (g_bound,)
+    scatter = tuple(written_ms(f) for f in (
+        lambda: sa.scatter_add_cuda(table, ids, upd),
+        lambda: sa.scatter_add_plain(table, ids, upd),
+        lambda: table.index_add_(0, ids, lib_upd))) + (s_bound,)
+    return gather, scatter
+
+
+def timing_line(what: str, gather, scatter) -> str:
+    return (f"{what}: gather_pool {gather[0] * 1e3:.1f} us (plain "
+            f"{gather[1] * 1e3:.1f}, index_select {gather[2] * 1e3:.1f}, "
+            f"bound {gather[3] * 1e3:.1f}); scatter_add {scatter[0] * 1e3:.1f}"
+            f" us (plain {scatter[1] * 1e3:.1f}, index_add_ "
+            f"{scatter[2] * 1e3:.1f}, bound {scatter[3] * 1e3:.1f})")
+
+
+def instantiation_row(timed, launches: int) -> dict:
+    kernel, plain, library, bound = timed
+    return {"launches": launches, "ms": kernel, "plain_ms": plain,
+            "library_ms": library, "bound_ms": bound, "bound_by": "bytes"}
+
+
+def phase_bf16(card: str) -> dict:
+    """bf16 tables: the new instantiations against their plain versions,
+    both kernels on a 100M x 32 bf16 table, scale_table --dtype bfloat16
+    at that width (the main path: momentum 0, then 0.98), and 20 lazy
+    steps with bf16 moments against the plain versions."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.tools import scale_table as st
+
+    out = check_bf16_kernels(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["big_err"] = check_big_table(card, SCALE_ROWS, 32, SCALE_IDS,
+                                     "bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- the main path: scale_table --dtype bfloat16 at 100M x 32
+    for mod in (gp, sa):
+        mod.LAUNCHES.reset()
+    runs = {}
+    for mu in (0.0, 0.98):
+        runs[mu] = st.run(st.ScaleConfig(
+            rows=SCALE_ROWS, dim=32, dtype="bfloat16",
+            ids_per_step=SCALE_IDS, momentum=mu, calls=5, device="cuda"))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = {"gather_pool": dict(gp.LAUNCHES.by_instantiation),
+                       "scatter_add": dict(sa.LAUNCHES.by_instantiation)}
+    for mu, r in runs.items():
+        if not r["value"] > 0 or not np.isfinite(r["last_loss"]):
+            raise AssertionError(f"scale_table bf16 momentum {mu}: {r}")
+        log(f"scale_table --rows {SCALE_ROWS} --dim 32 --dtype bfloat16 "
+            f"--ids_per_step {SCALE_IDS} --momentum {mu} ({r['table_gb']:.1f} "
+            f"GB table{' + as much momentum + last_step' if mu else ''}): "
+            f"{r['value']:.0f} rows/s, {r['ms_per_step']:.3f} ms/step over "
+            f"{r['steps']} steps (host clock), peak device memory "
+            f"{r['peak_memory_gb']:.2f} GB [{r['card']}]")
+    if runs[0.98]["peak_memory_gb"] > SCALE_BF16_PEAK_GB:
+        raise AssertionError(f"scale_table bf16 peak "
+                             f"{runs[0.98]['peak_memory_gb']:.2f} GB")
+    log(f"bf16 path launches {out['launches']} [{card}]")
+    out["scale"] = runs
+    # ---- the step's row kernels at its shapes on a 100M x 32 bf16 table
+    cfg = st.ScaleConfig(rows=SCALE_ROWS, dim=32, dtype="bfloat16",
+                         ids_per_step=SCALE_IDS, device="cuda")
+    table, _ = st.init(cfg, torch.device("cuda"))
+    ids = st.step_ids(cfg, 0, torch.Generator(device="cuda"))
+    upd = torch.randn(SCALE_IDS, 32, device="cuda") * 1e-3
+    gather, scatter = time_row_kernels(table, ids, upd)
+    log(timing_line(f"scale_table's step shapes ({SCALE_ROWS} x 32 bf16, "
+                    f"{SCALE_IDS} ids), device time per call from a cold, "
+                    f"clean L2, write-back included (profiler, 50 calls)",
+                    gather, scatter)
+        + f" [{card}]")
+    out["timed"] = {"gather_pool": {"bf16x8": gather},
+                    "scatter_add": {"bf16_d32": scatter}}
+    del table, ids, upd
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lazy"] = lazy_bf16_steps(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ glove
+
+GLOVE_VOCAB = 500_000         # dictionary tokens: 565,537 table rows with
+# the mask and the 65,536 minhash buckets (BENCHMARKS.md:241)
+GLOVE_ROWS = 4_000            # co-occurrence rows written, 50 others each:
+GLOVE_OTHERS = 50             # 200,000 triples, past 20 steps and one eval
+GLOVE_SHUFFLE = 131_072       # shuffle buffer, cut from 5,000,000
+GLOVE_EVAL_STEPS = 50         # the reference's eval_steps
+GLOVE_PROBES = "news,apple,computer,physics,math,biology"
+# the dense step with the kernels against the same steps with the plain
+# versions: the gradients' duplicate rows sum in another order, and Adam's
+# m / (sqrt(v) + eps) can turn a near-cancelled float32 gradient element's
+# last bits into a different update; at most this share of the elements of
+# the rows the steps touch (the only rows dense Adam moves) may differ by
+# more than 1e-6, so a row that takes a wrong update shows
+GLOVE_DIFF_SHARE = 1e-4
+GLOVE_LOSS_RTOL = 1e-5
+
+
+def write_glove_data(root: str, seed: int = 0):
+    """A dictionary of GLOVE_VOCAB tokens (the probe terms first) and
+    GLOVE_ROWS co-occurrence rows with Zipf-drawn token ids, so ids
+    repeat as in text, written by the port's recordio: (dictionary path,
+    shard pattern, the vocabulary)."""
+    import numpy as np
+
+    from esrecsys_tpu_torch.data import recordio
+    from esrecsys_tpu_torch.data.protos import CooccurrenceRow
+    from esrecsys_tpu_torch.data.vocab import VocabEntry, Vocabulary
+
+    probes = GLOVE_PROBES.split(",")
+    tokens = probes + [f"w{i:06d}" for i in range(GLOVE_VOCAB - len(probes))]
+    vocab = Vocabulary([VocabEntry(token=t, frequency=GLOVE_VOCAB - i,
+                                   doc_frequency=1)
+                        for i, t in enumerate(tokens)])
+    dict_path = os.path.join(root, "dictionary.gz")
+    vocab.save(dict_path)
+    rng = np.random.default_rng(seed)
+
+    def zipf(n):
+        return (rng.zipf(1.1, n) - 1) % GLOVE_VOCAB + 1
+
+    index = zipf(GLOVE_ROWS)
+    others = zipf(GLOVE_ROWS * GLOVE_OTHERS).reshape(GLOVE_ROWS, -1)
+    counts = np.floor(rng.pareto(1.2, others.shape) * 3 + 1).astype(
+        np.float32)
+    with recordio.ShardedWriter(os.path.join(root, "cooc"),
+                                records_per_shard=1000) as w:
+        for i in range(GLOVE_ROWS):
+            w.write_proto(CooccurrenceRow(index=int(index[i]),
+                                          other_index=others[i],
+                                          count=counts[i]))
+    return dict_path, os.path.join(root, "cooc", "part-*.bz2"), vocab
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def glove_run(card: str, root: str, pattern: str, vocab, optimizer: str
+              ) -> dict:
+    """workloads/glove.train() at full width for STEPS steps: two log
+    windows, one eval round, the knn hook at steps 10 and 20, a
+    checkpoint at 20 (restored bit for bit into a fresh state) and the
+    export; launches by instantiation."""
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.core.tracking import MemoryTracker
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.train import Checkpointer
+    from esrecsys_tpu_torch.train.export import load_model
+    from esrecsys_tpu_torch.workloads import glove as gl
+
+    work = os.path.join(root, optimizer)
+    half = STEPS // 2
+    cfg = gl.GloveConfig(
+        train_pattern=pattern, work_dir=work, steps_per_epoch=half,
+        num_epochs=2, eval_every_epochs=2, checkpoint_every_epochs=2,
+        shuffle_buffer_size=GLOVE_SHUFFLE, eval_steps=GLOVE_EVAL_STEPS,
+        optimizer=optimizer)
+    # the eval loss at the init, over the batches of the run's eval round
+    model0, state0 = gl.init_state(cfg, vocab.num_embeddings, "cuda")
+    eval_step = gl.make_eval_step(model0)
+    feed = pipelines_glove_batches(pattern, seed=cfg.seed + 1)
+    eval0 = float(np.mean([float(eval_step(
+        state0, gl.to_device(next(feed), torch.device("cuda")))["loss"])
+        for _ in range(GLOVE_EVAL_STEPS)]))
+    del model0, state0
+    tracker = MemoryTracker()
+    records = _Records()
+    glog = logging.getLogger("esrecsys_tpu_torch.workloads.glove")
+    glog.setLevel(logging.INFO)
+    glog.addHandler(records)
+    for mod in (gp, sa):
+        mod.LAUNCHES.reset()
+    try:
+        t0 = time.perf_counter()
+        res = gl.train(cfg, tracker=tracker, vocab=vocab, device="cuda")
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+    finally:
+        glog.removeHandler(records)
+    launches = {"gather_pool": dict(gp.LAUNCHES.by_instantiation),
+                "scatter_add": dict(sa.LAUNCHES.by_instantiation)}
+    windows = [m["train_loss"] for _, m in tracker.records
+               if "train_loss" in m]
+    ms = [m["ms_per_step"] for _, m in tracker.records if "ms_per_step" in m]
+    ev = res.last_eval_metrics
+    knn = [line for line in records.lines if line.startswith("knn step=")]
+    want = {"gather_pool": {"f32x4", "narrow_f32"},
+            "scatter_add": {"f32_d64", "f32_generic"}}
+    if res.state.step != STEPS or len(windows) != 2 or not ev \
+            or not ev["eval_loss"] < eval0 \
+            or len(knn) != 2 * len(GLOVE_PROBES.split(",")) \
+            or any(set(launches[k]) != v for k, v in want.items()):
+        raise AssertionError(f"glove {optimizer}: step {res.state.step}, "
+                             f"loss windows {windows}, eval {ev} (at the "
+                             f"init {eval0}), "
+                             f"{len(knn)} knn lines, launches {launches}")
+    emb = res.state.params.token_embedding.embedding
+    if emb.shape != (565_632, 64) or vocab.num_embeddings != 565_537:
+        raise AssertionError(f"glove table {tuple(emb.shape)}")
+    params, _, meta = load_model(os.path.join(
+        work, "artifacts", f"glove-{STEPS:08d}.npz"))
+    if meta["padded_rows"] != 565_632 or meta["vocab_rows"] != 565_537 \
+            or not np.array_equal(params["bias"]["embedding"],
+                                  res.state.params.bias.embedding.detach()
+                                  .cpu().numpy()):
+        raise AssertionError(f"glove {optimizer} export: {meta}")
+    ck = Checkpointer(os.path.join(work, "checkpoints"))
+    _, fresh = gl.init_state(dataclasses.replace(cfg, seed=1),
+                             vocab.num_embeddings, "cuda")
+    restored = ck.restore(fresh)
+    bad = [n for n, t in res.state.params.state_dict().items()
+           if not torch.equal(t, restored.params.state_dict()[n])]
+    bad += [f"{k}/{m}" for k, d in res.state.opt_state.items()
+            for m, t in d.items()
+            if not torch.equal(t, restored.opt_state[k][m])]
+    if bad or restored.step != STEPS:
+        raise AssertionError(f"glove {optimizer} checkpoint differs: {bad}")
+    # a step on the host clock and the device's busy share
+    batch = gl.to_device(next(pipelines_glove_batches(pattern)),
+                         torch.device("cuda"))
+    step = gl.select_train_step(res.state.params, cfg)
+    step_ms = host_ms(lambda: (step(res.state, batch),
+                               torch.cuda.synchronize()), 10)
+    wall, busy, top = device_breakdown(
+        lambda: (step(res.state, batch), torch.cuda.synchronize()), 5)
+    busy_txt = ("device time not measured" if busy is None else
+                f"device busy {busy:.3f} ms (idle share "
+                f"{1 - busy / wall:.2f}); largest: "
+                + ", ".join(f"{k[:40]} {v * 1e3:.1f} us"
+                            for k, v in top[:3]))
+    log(f"glove train() ({optimizer}, {vocab.num_embeddings} tokens padded "
+        f"to 565,632 x 64, B=2048, lr 5e-4, {STEPS} steps, shuffle buffer "
+        f"{GLOVE_SHUFFLE}): {path_s:.1f} s with one eval round of "
+        f"{GLOVE_EVAL_STEPS} batches ({res.eval_round_s[0] * 1e3:.1f} ms), "
+        f"the knn hook twice, a checkpoint ({res.ckpt_save_s[0]:.2f} s, "
+        f"restored bit for bit) and the export; eval loss over the same "
+        f"{GLOVE_EVAL_STEPS} batches {eval0:.5f} at the init, "
+        f"{ev['eval_loss']:.5f} at step {STEPS}; train loss of steps 1-10 "
+        f"{windows[0]:.5f}, 11-20 {windows[1]:.5f}; fit's ms/step "
+        f"{ms[0]:.3f}, {ms[1]:.3f} "
+        f"(host clock, data included); launches {launches} [{card}]")
+    log(f"glove {optimizer} step: {step_ms:.3f} ms on the host clock "
+        f"(median of 10, one batch on the card); under the profiler "
+        f"{wall:.3f} ms, {busy_txt} [{card}]")
+    log(f"glove knn at step {STEPS}: {knn[-1][:160]}")
+    return {"launches": launches, "step_ms": step_ms, "busy": busy,
+            "wall": wall, "eval": (eval0, ev["eval_loss"]),
+            "state": res.state}
+
+
+def pipelines_glove_batches(pattern: str, shuffle_buffer: int = 0,
+                            seed: int = 5):
+    """Full-width GloVe batches (B=2048) of the shards."""
+    from esrecsys_tpu_torch.data import pipelines
+
+    return pipelines.glove_batches(pattern, 2048,
+                                   shuffle_buffer=shuffle_buffer, seed=seed)
+
+
+def glove_dense_against_plain(card: str, pattern: str, vocab) -> dict:
+    """K_STEPS dense steps with the kernels against the same steps with
+    their plain versions on the card, from one init."""
+    import torch
+
+    from esrecsys_tpu_torch.workloads import glove as gl
+
+    cfg = gl.GloveConfig(train_pattern=pattern)
+    feed = pipelines_glove_batches(pattern)
+    batches = [gl.to_device(next(feed), torch.device("cuda"))
+               for _ in range(K_STEPS)]
+    runs = []
+    for plain in (False, True):
+        model, state = gl.init_state(cfg, vocab.num_embeddings, "cuda")
+        step = gl.make_train_step(model, cfg)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        runs.append((state, losses))
+    (sk, lk), (sp, lp) = runs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    touched = torch.unique(torch.cat([t for (pair, _) in batches
+                                      for t in pair]).long())
+    worst, share = {}, {}
+    for name in ("token_embedding", "bias"):
+        a = getattr(sk.params, name).embedding.detach()[touched]
+        b = getattr(sp.params, name).embedding.detach()[touched]
+        diff = (a - b).abs()
+        worst[name] = float(diff.max())
+        share[name] = float((diff > 1e-6).double().mean())
+        if share[name] > GLOVE_DIFF_SHARE:
+            raise AssertionError(f"glove dense step {name}: share "
+                                 f"{share[name]} of the touched elements "
+                                 f"differ by more than 1e-6")
+    if loss_rel > GLOVE_LOSS_RTOL:
+        raise AssertionError(f"glove dense step loss: {loss_rel}")
+    log(f"glove dense step, {K_STEPS} steps with the kernels against their "
+        f"plain versions on the card from one init: loss max relative diff "
+        f"{loss_rel:.3g} (bound {GLOVE_LOSS_RTOL}); over the "
+        f"{touched.numel()} rows the steps touch: "
+        + ", ".join(f"{k} max abs diff {worst[k]:.3g}, share over 1e-6 "
+                    f"{share[k]:.3g}" for k in worst)
+        + f" (bound: share {GLOVE_DIFF_SHARE}) [{card}]")
+    return worst
+
+
+def glove_rows_against_plain(card: str, name: str, table, ids, upd, kinds):
+    """The step's row kernels at its ids (both halves of a batch, Zipf
+    repeats and all) against their plain versions on fresh clones of one
+    of the trained tables: the gather bit-equal, the scatter-add within
+    TOL. Returns (gather err, scatter err)."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+
+    ids2 = ids[:, None].contiguous()
+    gk = gp.gather_pool_cuda(table, ids2, False, -1)
+    gplain = gp.gather_pool_plain(table, ids2, False, -1)
+    k, p = table.clone(), table.clone()
+    taken = (gp.INSTANTIATIONS[gp.launch_plan(table.shape[1], table.dtype,
+                                               table.data_ptr())],
+             sa.launch_plan(ids.shape[0], table.shape[1], k.data_ptr(),
+                            upd.data_ptr())[0])
+    sa.scatter_add_cuda(k, ids, upd)
+    sa.scatter_add_plain(p, ids, upd)
+    torch.cuda.synchronize()
+    if not torch.equal(gk, gplain):
+        raise AssertionError(f"glove {name}: gather_pool differs")
+    torch.testing.assert_close(k, p, rtol=TOL, atol=TOL)
+    hit = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
+    hit[ids.long()] = True
+    if not torch.equal(k[~hit], table[~hit]):
+        raise AssertionError(f"glove {name}: scatter_add changed rows no id "
+                             f"touches")
+    want = (kinds[0], 0 if kinds[1] == "f32_generic" else table.shape[1])
+    if taken != want:
+        raise AssertionError(f"glove {name}: instantiations {taken}")
+    s_err = float((k - p).abs().max())
+    log(f"glove step ids on {name} ({tuple(table.shape)}, {ids.shape[0]} "
+        f"ids): gather_pool {kinds[0]} bit-equal to plain; scatter_add "
+        f"{kinds[1]} max_abs_err {s_err:.3g} (TOL {TOL}) [{card}]")
+    return 0.0, s_err
+
+
+def phase_glove(card: str) -> dict:
+    """The GloVe trainer at the reference's full width: synthetic data by
+    the port's recordio, train() under adam and lazy_adam (the main path),
+    the dense step against its plain-version twin, and the row kernels at
+    the step's shapes."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.data.vocab import Vocabulary
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        dict_path, pattern, vocab = write_glove_data(root)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = Vocabulary.load(dict_path)
+        t_load = time.perf_counter() - t0
+        if loaded.num_embeddings != vocab.num_embeddings:
+            raise AssertionError("the dictionary does not load back")
+        log(f"glove data: a {GLOVE_VOCAB}-token dictionary and "
+            f"{GLOVE_ROWS * GLOVE_OTHERS} co-occurrence triples (Zipf ids) "
+            f"written by the port's recordio in {t_write:.1f} s; the "
+            f"dictionary loaded in {t_load:.1f} s [{card}]")
+        for optimizer in ("adam", "lazy_adam"):
+            r = glove_run(card, root, pattern, loaded, optimizer)
+            out[optimizer] = {k: v for k, v in r.items() if k != "state"}
+            state = r["state"]
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the row kernels at the step's shapes, on the trained tables
+        (t1, t2), _ = next(pipelines_glove_batches(pattern))
+        ids = torch.from_numpy(np.concatenate([t1, t2])).cuda()
+        timed, errs = {}, {}
+        for name, kinds in (("token_embedding", ("f32x4", "f32_d64")),
+                            ("bias", ("narrow_f32", "f32_generic"))):
+            table = getattr(state.params, name).embedding.detach().clone()
+            upd = torch.randn(ids.shape[0], table.shape[1],
+                              device="cuda") * 1e-3
+            errs[kinds[0]], errs[kinds[1]] = glove_rows_against_plain(
+                card, name, table, ids, upd, kinds)
+            gather, scatter = time_row_kernels(table, ids, upd)
+            timed[kinds[0]], timed[kinds[1]] = gather, scatter
+            log(timing_line(f"glove step shapes, {name} ({table.shape[0]} x "
+                            f"{table.shape[1]} float32, {ids.shape[0]} ids, "
+                            f"{int(torch.unique(ids).numel())} distinct), "
+                            f"device time per call from a cold, clean L2, "
+                            f"write-back included (profiler, 50 calls)",
+                            gather, scatter)
+                + f" [{card}]")
+            del table, upd
+        out["timed"], out["errs"] = timed, errs
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["dense_vs_plain"] = glove_dense_against_plain(card, pattern,
+                                                          loaded)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def new_path_instantiations(bf16_res: dict, glove_res: dict, g_err: float,
+                            s_err: float):
+    """(per kernel, per instantiation: the bf16 and glove paths' launches
+    and each instantiation's times at its path's shapes (kernel, plain
+    version, library call, byte bound) and its largest difference from
+    the plain version in the checks; per kernel, those paths' launches of
+    every instantiation)."""
+    launches = {"gather_pool": {}, "scatter_add": {}}
+    paths = [bf16_res["launches"]] + [glove_res[o]["launches"]
+                                      for o in ("adam", "lazy_adam")]
+    for counts in paths:
+        for kernel, by in counts.items():
+            for inst, n in by.items():
+                launches[kernel][inst] = launches[kernel].get(inst, 0) + n
+    timed = {"gather_pool": {**bf16_res["timed"]["gather_pool"],
+                             "f32x4": glove_res["timed"]["f32x4"],
+                             "narrow_f32": glove_res["timed"]["narrow_f32"]},
+             "scatter_add": {**bf16_res["timed"]["scatter_add"],
+                             "f32_d64": glove_res["timed"]["f32_d64"],
+                             "f32_generic":
+                                 glove_res["timed"]["f32_generic"]}}
+    glove_errs = glove_res["errs"]
+    errs = {"bf16x8": bf16_res["gather_err"],
+            "narrow_f32": max(bf16_res["gather_err"],
+                              glove_errs["narrow_f32"]),
+            "f32x4": max(g_err, glove_errs["f32x4"]),
+            "bf16_d32": bf16_res["scatter_err"],
+            "f32_d64": max(s_err, glove_errs["f32_d64"]),
+            "f32_generic": max(s_err, glove_errs["f32_generic"])}
+    out = {}
+    for kernel, by in timed.items():
+        out[kernel] = {}
+        for inst, t in by.items():
+            out[kernel][inst] = {**instantiation_row(
+                t, launches[kernel].get(inst, 0)), "max_abs_err": errs[inst]}
+    return out, {k: sum(by.values()) for k, by in launches.items()}
 
 
 def main() -> int:
@@ -3218,6 +4060,8 @@ def main() -> int:
             del ctx
         tool_res = timed("tool", phase_tool, card)
         lazy_res = timed("lazy", phase_lazy, card, train_res)
+        bf16_res = timed("bf16", phase_bf16, card)
+        glove_res = timed("glove", phase_glove, card)
         log(f"seconds per phase: {spent}")
     except Exception:
         traceback.print_exc()
@@ -3235,22 +4079,30 @@ def main() -> int:
         "ms": main_res["ms"], "plain_ms": main_res["plain_ms"],
         "bound_ms": main_res["bound_ms"], "bound_by": main_res["bound_by"],
         "library_ms": None}]
+    new_paths, new_launches = new_path_instantiations(bf16_res, glove_res,
+                                                      g_err, s_err)
     for name, replaces in (
             ("gather_pool", "esrecsys_tpu/ops/lookup.py:34"),
             ("scatter_add", "esrecsys_tpu/ops/scatter.py:74"),
             ("fused_affinity", "esrecsys_tpu/retrieval/fused.py:453")):
         r = train_res[name]
         # the serving phases' launches: the deploy cycles' training, the
-        # IVF builds and rescores
+        # IVF builds and rescores; the bf16 and glove paths'
         served = sum(res["launches"].get(name, 0)
                      for res in (modes_res, sub_res))
-        rows.append({
+        inst = new_paths.get(name, {})
+        row = {
             "name": name, "route": "cuda",
             "source": f"esrecsys_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": r["launches"] + served,
+            "replaces": replaces,
+            "launches": r["launches"] + served
+            + new_launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if inst:
+            row["instantiations"] = inst
+        rows.append(row)
     rows.append({
         "name": "fused_scan_int8", "route": "cuda",
         "source": "esrecsys_tpu_torch/csrc/fused_scan_int8.cu",

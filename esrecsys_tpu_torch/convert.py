@@ -5,7 +5,10 @@ The JAX tree of ``PlaylistModel`` is ``{"album_embed": {"embedding": a},
 "artist_embed": {"embedding": b}}``; the port's state dict names the same
 tensors ``album_embed.embedding`` and ``artist_embed.embedding``. The
 mapping is the path joined with dots, so it holds for any model whose
-module names mirror the reference's.
+module names mirror the reference's (``Glove``'s ``token_embedding`` and
+``bias`` too). Train states cross with their optimizer state: the
+playlist's momentum carriers and SGD trace, GloVe's optax Adam state or
+LazyAdam moments.
 """
 
 from __future__ import annotations
@@ -56,6 +59,56 @@ def _optax_trace(opt_state):
     return None
 
 
+def _optax_adam(opt_state):
+    """(count, mu, nu) of an optax Adam state (``ScaleByAdamState``, alone
+    or in a chain), or None."""
+    parts = opt_state if isinstance(opt_state, tuple) else (opt_state,)
+    for part in parts:
+        if all(hasattr(part, k) for k in ("count", "mu", "nu")):
+            return part.count, part.mu, part.nu
+    return None
+
+
+def _copy_tree(dst: Mapping[str, Any], src: Mapping[str, Any]) -> None:
+    """Copy the arrays of ``src`` into the tensors of ``dst`` (same keys)."""
+    for key, t in dst.items():
+        if isinstance(t, Mapping):
+            _copy_tree(t, src[key])
+        else:
+            t.copy_(torch.from_numpy(np.array(src[key])))
+
+
+def glove_state_from_jax(jax_state, cfg, num_embeddings: int, device=None):
+    """A JAX GloVe ``TrainState`` -> the port's for the same
+    ``GloveConfig`` fields and vocabulary size: params, ``step``, and the
+    optimizer state, on ``device`` (default: the card). ``lazy_adam``'s
+    ``{"embedding": {"m", "v"}, "bias": {"m", "v"}}`` is copied as it is;
+    ``adam``'s optax ``ScaleByAdamState`` becomes the per-table ``mu`` and
+    ``nu``, and its ``count`` must equal the step (the port's bias
+    correction counts ``step + 1`` updates)."""
+    from esrecsys_tpu_torch.workloads.glove import TABLES, init_state
+
+    model, state = init_state(cfg, num_embeddings, device)
+    model.load_state_dict(params_from_jax(jax_state.params))
+    state.step = int(np.asarray(jax_state.step))
+    if cfg.optimizer == "lazy_adam":
+        _copy_tree(state.opt_state, jax_state.opt_state)
+        return state
+    adam = _optax_adam(jax_state.opt_state)
+    if adam is None:
+        raise ValueError("the JAX state holds no optax Adam state")
+    count, mu, nu = adam
+    if int(np.asarray(count)) != state.step:
+        raise ValueError(f"Adam count {int(np.asarray(count))} != step "
+                         f"{state.step}")
+    for name in TABLES:
+        state.opt_state[name]["mu"].copy_(
+            torch.from_numpy(np.array(mu[name]["embedding"])))
+        state.opt_state[name]["nu"].copy_(
+            torch.from_numpy(np.array(nu[name]["embedding"])))
+    return state
+
+
 def state_from_jax(jax_state, cfg, device=None):
     """A JAX playlist ``TrainState`` -> the port's ``TrainState`` for the
     same ``PlaylistConfig`` fields: params, ``step``, and the optimizer
@@ -64,7 +117,8 @@ def state_from_jax(jax_state, cfg, device=None):
     momentum state is copied as it is: ``{"album": {"momentum"}, "artist":
     {"momentum"}}`` for the dense carrier, with each table's int32
     ``last_step`` for the lazy one; the dense step's optax trace becomes
-    the SGD momentum buffers."""
+    the SGD momentum buffers. GloVe's states cross with
+    :func:`glove_state_from_jax`."""
     from esrecsys_tpu_torch.workloads.playlist import init_state
 
     model, state = init_state(cfg, device)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import subprocess
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -24,6 +25,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             f"device {dev} was requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def array_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: on a card through pinned host memory
+    with a ``non_blocking`` copy, so the copy overlaps the host's next
+    work."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def card_line(device: torch.device) -> Optional[str]:

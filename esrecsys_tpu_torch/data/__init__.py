@@ -1,2 +1,4 @@
-"""Input data: the playlist file pipelines, their TFRecord format, host
-prefetch and the uri dictionaries (counterpart of ``esrecsys_tpu/data``)."""
+"""Input data: the playlist file pipelines and their TFRecord format, the
+GloVe co-occurrence pipelines with their record files and proto3 codec,
+host prefetch, and the vocabularies (counterpart of
+``esrecsys_tpu/data``)."""

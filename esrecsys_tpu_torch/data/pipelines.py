@@ -1,6 +1,8 @@
-"""Playlist input pipelines (counterpart of the playlist half of
-``esrecsys_tpu/data/pipelines.py``): fixed-shape numpy batches from
-TFRecord files or from packed ``.npz`` shards, and the track corpus.
+"""Input pipelines (counterpart of the GloVe and playlist parts of
+``esrecsys_tpu/data/pipelines.py``): GloVe's co-occurrence triples and
+batches from ``CooccurrenceRow`` shards; the playlist's fixed-shape numpy
+batches from TFRecord files or from packed ``.npz`` shards, and the track
+corpus.
 
 Batches are plain numpy; the caller moves them to the card. Differences
 from the reference: ``playlist_batches`` reads its files with
@@ -16,14 +18,14 @@ from __future__ import annotations
 import glob as glob_lib
 import json
 import os
-from typing import Dict, Iterator, List, TypeVar
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
-from esrecsys_tpu_torch.data import tfrecord
+from esrecsys_tpu_torch.data import recordio, tfrecord
+from esrecsys_tpu_torch.data.protos import CooccurrenceRow
+from esrecsys_tpu_torch.data.recordio import shuffled
 from esrecsys_tpu_torch.data.vocab import JsonVocab
-
-T = TypeVar("T")
 
 PLAYLIST_CONTEXT_KEYS = ("track_context", "album_context", "artist_context")
 PLAYLIST_NEXT_KEYS = ("next_track", "next_album", "next_artist")
@@ -37,22 +39,44 @@ def _files(pattern: str) -> List[str]:
     return files
 
 
-def shuffled(it: Iterator[T], buffer_size: int, seed: int = 0
-             ) -> Iterator[T]:
-    """Streaming buffer shuffle: fill ``buffer_size`` items, then swap one
-    random buffered item out per item read; drain in random order."""
-    rng = np.random.default_rng(seed)
-    buf: List[T] = []
-    for item in it:
-        if len(buf) < buffer_size:
-            buf.append(item)
-            continue
-        j = int(rng.integers(0, buffer_size))
-        buf[j], item = item, buf[j]
-        yield item
-    for j in rng.permutation(len(buf)):
-        yield buf[j]
+# ------------------------------------------------------------------ glove
 
+def cooccurrence_triples(pattern: str, repeat: bool = True,
+                         shuffle_files: bool = True, seed: int = 0
+                         ) -> Iterator[Tuple[int, int, float]]:
+    """The (token1, token2, count) triples of ``CooccurrenceRow`` shards,
+    row by row, in ``recordio.proto_stream``'s file order."""
+    for row in recordio.proto_stream(pattern, CooccurrenceRow,
+                                     shuffle_files=shuffle_files,
+                                     repeat=repeat, seed=seed):
+        for other, count in zip(row.other_index, row.count):
+            yield (row.index, other, count)
+
+
+def glove_batches(pattern: str, batch_size: int, shuffle_buffer: int = 0,
+                  repeat: bool = True, seed: int = 0
+                  ) -> Iterator[Tuple[Tuple[np.ndarray, np.ndarray],
+                                      np.ndarray]]:
+    """((token1, token2), count) batches of int32, int32 and float32
+    arrays; a trailing partial batch is dropped. ``shuffle_buffer`` > 0
+    passes the triples through :func:`recordio.shuffled` seeded with
+    ``seed + 1``, as the reference does, so a seed gives its batches."""
+    it = cooccurrence_triples(pattern, repeat=repeat, seed=seed)
+    if shuffle_buffer:
+        it = shuffled(it, shuffle_buffer, seed=seed + 1)
+    t1 = np.empty(batch_size, np.int32)
+    t2 = np.empty(batch_size, np.int32)
+    ct = np.empty(batch_size, np.float32)
+    i = 0
+    for a, b, c in it:
+        t1[i], t2[i], ct[i] = a, b, c
+        i += 1
+        if i == batch_size:
+            yield (t1.copy(), t2.copy()), ct.copy()
+            i = 0
+
+
+# ------------------------------------------------------------- playlists
 
 def decode_playlist(record: bytes, context_size: int, max_next: int
                     ) -> Dict[str, np.ndarray]:

@@ -35,13 +35,22 @@ build_logs: Dict[str, str] = {}
 
 
 class LaunchCounter:
-    """Launches of one kernel: ``count`` grows by one per launch."""
+    """Launches of one kernel: ``count`` grows by one per launch, and
+    ``by_instantiation`` counts them by the name the wrapper gives
+    (:meth:`add`)."""
 
     def __init__(self) -> None:
         self.count = 0
+        self.by_instantiation: Dict[str, int] = {}
+
+    def add(self, instantiation: str) -> None:
+        self.count += 1
+        self.by_instantiation[instantiation] = (
+            self.by_instantiation.get(instantiation, 0) + 1)
 
     def reset(self) -> None:
         self.count = 0
+        self.by_instantiation = {}
 
 
 def kernel_sources() -> List[str]:

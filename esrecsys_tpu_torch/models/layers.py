@@ -19,7 +19,8 @@ class TableEmbed(nn.Module):
     Rows are padded to a multiple of ``rows_multiple`` (the reference pads
     to 128 rows at D dividing 128 so its lane-packed layouts apply); the
     padded rows are initialised like the rest and sit past the id guard.
-    Init: ``normal / sqrt(features)`` drawn from ``generator``.
+    Init: ``normal / sqrt(features)`` drawn from ``generator``, or zeros
+    with ``zeros=True`` (the reference's ``zeros_init``, GloVe's bias).
 
     Lookup with the guard ``off`` follows ``jnp.take``'s default mode, not
     raw indexing (which is a device-side assert on CUDA): negative ids in
@@ -34,15 +35,19 @@ class TableEmbed(nn.Module):
                  rows_multiple: int = 1,
                  device: Optional[torch.device] = None,
                  generator: Optional[torch.Generator] = None,
-                 name: str = "embed"):
+                 name: str = "embed", zeros: bool = False):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.features = features
         self.name = name
         rows = pad_to_multiple(num_embeddings, rows_multiple)
-        init = torch.randn(rows, features, generator=generator,
-                           device=device, dtype=torch.float32)
-        self.embedding = nn.Parameter(init / math.sqrt(features))
+        if zeros:
+            init = torch.zeros(rows, features, device=device)
+        else:
+            init = torch.randn(rows, features, generator=generator,
+                               device=device, dtype=torch.float32)
+            init = init / math.sqrt(features)
+        self.embedding = nn.Parameter(init)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         ids = guards.check_ids(ids, self.num_embeddings, self.name)

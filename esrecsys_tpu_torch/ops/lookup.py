@@ -5,8 +5,9 @@ Both entry points run through one kernel,
 :mod:`esrecsys_tpu_torch.kernels.gather_pool` (the port of the TPU kernel
 ``_pool_kernel``): a hand-written CUDA kernel on the card, its plain
 PyTorch version on the CPU. Ids are clamped into ``[0, R)`` and slots equal
-to ``mask_id`` are skipped. The backward of the lookup scatters the
-gradient into a zero table through
+to ``mask_id`` are skipped. Tables are float32 or bf16; either gives
+float32 rows (bf16 rows widened exactly). The backward of the lookup
+scatters the gradient into a zero table through
 :mod:`esrecsys_tpu_torch.kernels.scatter_add`, as the reference's
 ``_fused_bwd`` scatters through XLA.
 """
@@ -52,9 +53,9 @@ class _LookupPool(torch.autograd.Function):
 
 def fused_lookup_pool(table: torch.Tensor, ids: torch.Tensor,
                       pool: str = "mean", mask_id: int = 0) -> torch.Tensor:
-    """Pooled lookup ``pool_k(table[ids[b, k]])`` -> (B, D) float32, with
-    ``mask_id`` slots excluded; ``mean`` divides by ``max(count, 1)``.
-    Differentiable in ``table``."""
+    """Pooled lookup ``pool_k(table[ids[b, k]])`` -> (B, D) float32 of a
+    float32 or bf16 table, with ``mask_id`` slots excluded; ``mean``
+    divides by ``max(count, 1)``. Differentiable in ``table``."""
     if pool not in _SUPPORTED_POOLS:
         raise ValueError(f"pool must be one of {_SUPPORTED_POOLS}, "
                          f"got {pool!r}")
@@ -63,7 +64,8 @@ def fused_lookup_pool(table: torch.Tensor, ids: torch.Tensor,
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Row gather ``table[ids]`` -> (n, D): the K=1, ``mask_id=-1`` case of
-    the pooled lookup, so an id of -1 gives a zero row and other ids are
-    clamped into ``[0, R)``. Differentiable in ``table``."""
+    """Row gather ``table[ids]`` -> (n, D) float32 (a bf16 table's rows
+    widened exactly): the K=1, ``mask_id=-1`` case of the pooled lookup,
+    so an id of -1 gives a zero row and other ids are clamped into
+    ``[0, R)``. Differentiable in ``table``."""
     return fused_lookup_pool(table, ids.reshape(-1, 1), "sum", -1)

@@ -1,5 +1,6 @@
-"""Optimizer state of the row-sparse train step (counterpart of
-``esrecsys_tpu/ops/optim.py``): both momentum carriers.
+"""Optimizer state of the row-sparse train steps (counterpart of
+``esrecsys_tpu/ops/optim.py``): both momentum carriers, LazyAdam, and
+dense Adam in optax's order.
 
 The dense carrier keeps one momentum buffer per table and decays all of it
 every step. The lazy carrier touches only the rows a step gathered: a row
@@ -7,27 +8,39 @@ idle for k steps would have moved ``p -= lr * m * (mu + mu^2 + ... +
 mu^k)`` and decayed ``m *= mu^k`` under dense SGD momentum, and both
 closed forms are applied at the row's next touch (the "catch-up").
 :func:`momentum_flush` applies every row's outstanding catch-up, so lazy
-plus flush is the dense trajectory up to float32 rounding. The per-row
-arithmetic is float32, in the reference's order.
+plus flush is the dense trajectory up to float32 rounding. LazyAdam
+(:func:`lazy_adam_update`) updates the moments and rows of the touched
+rows only, with the bias correction of the global step (TF's LazyAdam;
+not dense Adam, which moves idle rows while their moments decay).
+
+Tables and moments are float32 or bf16 (``momentum_init`` and
+``adam_init`` take the state's dtype; bf16 halves the bytes of a 100M-row
+table). The per-row arithmetic is float32, in the reference's order, and
+each result is rounded to the state's dtype where the reference casts it:
+the scatters add float32 updates rounded to the table's dtype, as the
+reference's ``at[].add(updates.astype(table.dtype))`` does. LazyAdam
+multiplies bf16 moments by ``b1`` and ``b2`` in bf16, as the reference's
+``b1 * m_rows`` does for a bf16 ``m_rows``.
 
 Tables and state update in place; the step number is a Python int. Rows
-of the table and momentum go through :func:`gather_rows` (the row-gather
-kernel on the card; the reference uses a plain ``jnp.take`` here), the
-segment sum and both scatters through :func:`scatter_add_rows` (the
-scatter-add kernel). The duplicate handling keeps the reference's static
-shapes: a stable sort, a ``first`` mask and a segment sum into an (n, D)
-buffer, never ``torch.unique``, whose output size would need the device
-to report back to the host every step.
+of the tables and moments go through :func:`gather_rows` (the row-gather
+kernel on the card, which widens bf16 rows exactly; the reference uses a
+plain ``jnp.take`` here), the segment sum and the scatters through
+:func:`scatter_add_rows` (the scatter-add kernel). The duplicate handling
+keeps the reference's static shapes: a stable sort, a ``first`` mask and a
+segment sum into an (n, D) buffer, never ``torch.unique``, whose output
+size would need the device to report back to the host every step. Only
+the first occurrence of a row updates it; the others scatter zeros.
 
-The reference's LazyAdam and its 128-lane packed layouts are not ported
-here (LazyAdam is GloVe's, ROADMAP queue 1 item 5; the packed layouts are
-a TPU layout trick).
+The reference's 128-lane packed layouts (``lazy_adam_packed_update``,
+``pack_rows`` and the rest) are a TPU layout trick and are not ported.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from esrecsys_tpu_torch.ops.lookup import gather_rows
@@ -36,11 +49,13 @@ from esrecsys_tpu_torch.ops.scatter import scatter_add_rows
 State = Dict[str, torch.Tensor]
 
 
-def momentum_init(table: torch.Tensor, lazy: bool = False) -> State:
-    """A float32 zero momentum buffer shaped like the table; the lazy
-    carrier adds ``last_step``, the int32 step (R,) at which each row was
-    last settled."""
-    state = {"momentum": torch.zeros(table.shape, dtype=torch.float32,
+def momentum_init(table: torch.Tensor, lazy: bool = False,
+                  dtype: torch.dtype = torch.float32) -> State:
+    """A zero momentum buffer of ``dtype`` shaped like the table (float32,
+    or bf16 where device memory is the constraint); the lazy carrier adds
+    ``last_step``, the int32 step (R,) at which each row was last
+    settled."""
+    state = {"momentum": torch.zeros(table.shape, dtype=dtype,
                                      device=table.device)}
     if lazy:
         state["last_step"] = torch.zeros((table.shape[0],), dtype=torch.int32,
@@ -74,6 +89,23 @@ def momentum_catchup_rows(state: State, ids: torch.Tensor, *, lr: float,
     return -lr * m_rows * geom[:, None]
 
 
+def _first_occurrences(ids: torch.Tensor, row_grads: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """(sorted ids, first-occurrence mask, per-slot gradients, 0/1 weights
+    (n, 1)): duplicate ids' gradients summed into the first occurrence of
+    the stably sorted ids, zeros at the others."""
+    n = ids.shape[0]
+    sids, order = torch.sort(ids.to(torch.int32), stable=True)
+    sgrads = row_grads.index_select(0, order)
+    first = torch.ones((n,), dtype=torch.bool, device=ids.device)
+    first[1:] = sids[1:] != sids[:-1]
+    seg = torch.cumsum(first, 0, dtype=torch.int32) - 1
+    agg = scatter_add_rows(torch.zeros_like(sgrads), seg, sgrads)
+    g = torch.where(first[:, None], agg.index_select(0, seg), 0.0)
+    return sids, first, g, first.to(torch.float32)[:, None]
+
+
 def lazy_momentum_update(table: torch.Tensor, state: State,
                          ids: torch.Tensor, row_grads: torch.Tensor, *,
                          lr: float, mu: float, step: int) -> None:
@@ -82,17 +114,9 @@ def lazy_momentum_update(table: torch.Tensor, state: State,
     ``table`` and ``state`` in place. Duplicate ids sum their gradients
     into the first occurrence of the sorted ids, so each row's catch-up
     and momentum update apply once; the other occurrences add zeros."""
-    n = ids.shape[0]
-    if n == 0:
+    if ids.shape[0] == 0:
         return
-    sids, order = torch.sort(ids.to(torch.int32), stable=True)
-    sgrads = row_grads.index_select(0, order)
-    first = torch.ones((n,), dtype=torch.bool, device=ids.device)
-    first[1:] = sids[1:] != sids[:-1]
-    seg = torch.cumsum(first, 0, dtype=torch.int32) - 1
-    agg = scatter_add_rows(torch.zeros_like(sgrads), seg, sgrads)
-    g = torch.where(first[:, None], agg.index_select(0, seg), 0.0)
-    w = first.to(torch.float32)[:, None]
+    sids, first, g, w = _first_occurrences(ids, row_grads)
 
     m_rows = gather_rows(state["momentum"], sids)
     mu_k, geom = _decay(_row_steps(state, sids), mu, step)
@@ -115,17 +139,18 @@ def _settlement(state: State, lr: float, mu: float,
                 step: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(every row's outstanding table delta, mu^k per row)."""
     mu_k, geom = _decay(state["last_step"], mu, step)
-    delta = torch.mul(state["momentum"], -lr).mul_(geom[:, None])
+    delta = torch.mul(state["momentum"].float(), -lr).mul_(geom[:, None])
     return delta, mu_k
 
 
 def momentum_flush(table: torch.Tensor, state: State, *, lr: float,
                    mu: float, step: int) -> torch.Tensor:
-    """A new table with every row's outstanding catch-up applied: the
-    dense SGD-momentum trajectory at ``step``. ``table`` and ``state`` are
-    not touched (training continues from them)."""
+    """A new table, in the table's dtype, with every row's outstanding
+    catch-up applied in float32: the dense SGD-momentum trajectory at
+    ``step``. ``table`` and ``state`` are not touched (training continues
+    from them)."""
     delta, _ = _settlement(state, lr, mu, step)
-    return delta.add_(table)
+    return delta.add_(table).to(table.dtype)
 
 
 def momentum_settle(table: torch.Tensor, state: State, *, lr: float,
@@ -142,3 +167,66 @@ def momentum_settle(table: torch.Tensor, state: State, *, lr: float,
     del delta
     state["momentum"].mul_(mu_k[:, None])
     state["last_step"].fill_(step)
+
+
+def adam_init(table: torch.Tensor, dtype: torch.dtype = torch.float32
+              ) -> State:
+    """LazyAdam's zero moments ``m`` and ``v`` of ``dtype`` shaped like the
+    table."""
+    return {k: torch.zeros(table.shape, dtype=dtype, device=table.device)
+            for k in ("m", "v")}
+
+
+def _decayed(rows: torch.Tensor, decay: float,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``decay * rows`` as the reference computes it for moments of
+    ``dtype``: in float32, or in bf16 (the Python scalar takes the array's
+    dtype, and the product is rounded to it) for bf16 moments; float32
+    out."""
+    if dtype == torch.float32:
+        return rows * decay
+    return (rows.to(dtype) * torch.tensor(decay, dtype=dtype,
+                                          device=rows.device)).float()
+
+
+def lazy_adam_update(table: torch.Tensor, state: State, ids: torch.Tensor,
+                     row_grads: torch.Tensor, *, lr: float, b1: float = 0.9,
+                     b2: float = 0.999, eps: float = 1e-8,
+                     step: int) -> None:
+    """TF-LazyAdam on the rows ``ids`` (n,) with ``row_grads`` (n, D): the
+    moments and rows of the touched rows update, with the bias correction
+    of the global ``step`` (0-based); ``table`` and ``state`` in place.
+    Duplicate ids are summed into their first occurrence, as in
+    :func:`lazy_momentum_update`."""
+    if ids.shape[0] == 0:
+        return
+    sids, _, g, w = _first_occurrences(ids, row_grads)
+    dtype = state["m"].dtype
+    m_rows = gather_rows(state["m"], sids)
+    v_rows = gather_rows(state["v"], sids)
+    m_new = _decayed(m_rows, b1, dtype) + (1.0 - b1) * g
+    v_new = _decayed(v_rows, b2, dtype) + (1.0 - b2) * g.square()
+    t = np.float32(step + 1)
+    m_hat = m_new / float(np.float32(1.0) - np.float32(b1) ** t)
+    v_hat = v_new / float(np.float32(1.0) - np.float32(b2) ** t)
+    delta = -lr * m_hat / (v_hat.sqrt() + eps) * w
+    scatter_add_rows(table, sids, delta)
+    scatter_add_rows(state["m"], sids, (m_new - m_rows) * w)
+    scatter_add_rows(state["v"], sids, (v_new - v_rows) * w)
+
+
+def adam_update(param: torch.Tensor, grad: torch.Tensor, state: State, *,
+                lr: float, b1: float = 0.9, b2: float = 0.999,
+                eps: float = 1e-8, step: int) -> None:
+    """One dense Adam step of ``param`` in place, in optax's order
+    (``optax.adam(lr)`` with ``eps_root`` 0): ``mu = (1 - b1) g + b1 mu``,
+    ``nu = (1 - b2) g^2 + b2 nu``, ``p += -lr * mu_hat / (sqrt(nu_hat) +
+    eps)`` with the bias corrections of ``step + 1`` updates. ``state``
+    holds ``mu`` and ``nu`` shaped like ``param``, float32."""
+    t = np.float32(step + 1)
+    mu, nu = state["mu"], state["nu"]
+    mu.mul_(b1).add_(grad * (1.0 - b1))
+    nu.mul_(b2).add_(grad.square().mul_(1.0 - b2))
+    mu_hat = mu / float(np.float32(1.0) - np.float32(b1) ** t)
+    nu_hat = nu / float(np.float32(1.0) - np.float32(b2) ** t)
+    param.add_(mu_hat.div_(nu_hat.sqrt_().add_(eps)).mul_(-lr))

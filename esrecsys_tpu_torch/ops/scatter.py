@@ -7,7 +7,7 @@
 ``_vmem_scatter_kernel``): hand-written CUDA kernels on the card, their
 plain PyTorch versions on the CPU. The reference's ``precision`` passes
 (``bf16``/``bf16x2``/``f32``) are a trick of the TPU's matrix unit and are
-not ported: the port is float32 throughout and takes no ``precision``.
+not ported: the port takes no ``precision``.
 """
 
 from __future__ import annotations
@@ -20,9 +20,11 @@ from esrecsys_tpu_torch.kernels.smem_scatter import smem_scatter
 
 def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
                      updates: torch.Tensor) -> torch.Tensor:
-    """``table.at[ids].add(updates)``: unsorted ids, duplicates summed,
-    float32. Updates ``table`` IN PLACE (it saves a table-sized copy per
-    call) and returns it; ids outside ``[0, R)`` are dropped."""
+    """``table.at[ids].add(updates.astype(table.dtype))``: unsorted ids,
+    duplicates summed, float32 updates into a float32 or bf16 table (a
+    bf16 table adds each update rounded to bf16). Updates ``table`` IN
+    PLACE (it saves a table-sized copy per call) and returns it; ids
+    outside ``[0, R)`` are dropped."""
     return scatter_add(table, ids.to(torch.int32).contiguous(),
                        updates.contiguous())
 

@@ -7,16 +7,18 @@ w)`` with respect to them and updates the table row-sparse: with
 ``--momentum`` > 0 through the lazy momentum carrier (``ops/optim.py``:
 the exact dense SGD-momentum trajectory without a pass over the whole
 table), else a scatter-add of ``-lr * grad`` (the scatter-add kernel).
-The full width is 100M rows of 32 float32 at 262,144 ids a step with
-momentum 0.98: the table, a momentum buffer of its size and an int32
+The full width is 100M rows of 32 at 262,144 ids a step with momentum
+0.98: the table, a momentum buffer of its dtype and size and an int32
 ``last_step`` a row on the card. Row offsets pass 2^31 elements there.
+``--dtype`` is ``bfloat16`` (the default, as the reference's) or
+``float32``; the moments take the table's dtype, as the reference's do.
 
 How it differs from the reference: the table is the logical (R, D) one
 (the reference's 128-lane packed layout is a TPU layout trick);
 ``steps_per_call`` only counts steps (a call is a loop of eager steps);
 ``--n_model`` > 1 raises (sharded tables are ROADMAP queue 1 item 8);
-``--dtype`` must be ``float32``, since the gather and scatter-add kernels
-are float32 only (bf16 tables are ROADMAP queue 1's bf16-tables item).
+a ``--dtype`` other than ``float32`` or ``bfloat16`` raises (the gather
+and scatter-add kernels take those two).
 
 Prints one JSON line: ``table_lookup_update_rows_per_sec`` as ``value``,
 ``ms_per_step`` (host clock over ``calls * steps_per_call`` steps after one
@@ -24,7 +26,7 @@ warm-up call, ending in a device sync), the peak device memory, and the
 card's name and power limit.
 
 Run: python -m esrecsys_tpu_torch.tools.scale_table [--rows 100000000]
-         [--momentum 0.98] [--device cpu]
+         [--dtype bfloat16|float32] [--momentum 0.98] [--device cpu]
 """
 
 from __future__ import annotations
@@ -46,11 +48,14 @@ from esrecsys_tpu_torch.ops.optim import (State, lazy_momentum_update,
 from esrecsys_tpu_torch.ops.scatter import scatter_add_rows
 
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 @dataclasses.dataclass(frozen=True)
 class ScaleConfig:
     rows: int = 100_000_000
     dim: int = 32
-    dtype: str = "float32"
+    dtype: str = "bfloat16"
     ids_per_step: int = 262_144
     steps_per_call: int = 4
     calls: int = 4
@@ -66,23 +71,25 @@ def _check(cfg: ScaleConfig) -> None:
         raise NotImplementedError(
             "n_model > 1 (a row-sharded table) is not ported yet (ROADMAP "
             "queue 1 item 8, multi-device)")
-    if cfg.dtype != "float32":
+    if cfg.dtype not in DTYPES:
         raise NotImplementedError(
             f"dtype {cfg.dtype!r}: the gather and scatter-add kernels take "
-            "float32 tables only; bf16 tables wait for their bf16 "
-            "instantiations (ROADMAP queue 1, bf16 tables)")
+            "float32 and bf16 tables (--dtype float32 or bfloat16)")
 
 
 def init(cfg: ScaleConfig, device: torch.device
          ) -> Tuple[torch.Tensor, Optional[State]]:
-    """The (rows, dim) float32 table, normal / sqrt(dim) from ``cfg.seed``
-    (the reference's ``init_table`` scale), and the lazy carrier's state
+    """The (rows, dim) table of ``cfg.dtype``, normal / sqrt(dim) from
+    ``cfg.seed`` (the reference's ``init_table`` scale, drawn in the
+    table's dtype), and the lazy carrier's state in the table's dtype
     (None at momentum 0)."""
     _check(cfg)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    table = torch.randn((cfg.rows, cfg.dim), generator=gen, device=device)
+    table = torch.randn((cfg.rows, cfg.dim), generator=gen, device=device,
+                        dtype=DTYPES[cfg.dtype])
     table.mul_(1.0 / math.sqrt(cfg.dim))
-    state = momentum_init(table, lazy=True) if cfg.momentum else None
+    state = (momentum_init(table, lazy=True, dtype=table.dtype)
+             if cfg.momentum else None)
     return table, state
 
 
@@ -155,7 +162,7 @@ def run(cfg: ScaleConfig) -> dict:
         "rows": cfg.rows,
         "dim": cfg.dim,
         "dtype": cfg.dtype,
-        "table_gb": cfg.rows * cfg.dim * 4 / 1e9,
+        "table_gb": cfg.rows * cfg.dim * table.element_size() / 1e9,
         "n_model": cfg.n_model,
         "layout": "logical",
         "ids_per_step": cfg.ids_per_step,

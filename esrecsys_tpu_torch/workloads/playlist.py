@@ -42,7 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from esrecsys_tpu_torch.core import config as config_lib
-from esrecsys_tpu_torch.core.device import pad_to_multiple, resolve_device
+from esrecsys_tpu_torch.core.device import (array_to_device, pad_to_multiple,
+                                           resolve_device)
 from esrecsys_tpu_torch.core.tracking import make_tracker
 from esrecsys_tpu_torch.data import pipelines
 from esrecsys_tpu_torch.models.playlist import (PlaylistModel,
@@ -683,18 +684,8 @@ def validate_batch(batch, num_tracks: int, num_albums: int,
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Batch:
-    """A numpy batch on ``device``: on a card through pinned host memory
-    with ``non_blocking`` copies, so the copy overlaps the host's next
-    work."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        else:
-            t = t.to(device)
-        out[k] = t
-    return out
+    """A numpy batch on ``device`` (``core/device.array_to_device``)."""
+    return {k: array_to_device(v, device) for k, v in batch.items()}
 
 
 def train(cfg: PlaylistConfig, tracker=None, corpus_np=None, device=None,

@@ -389,7 +389,7 @@ def test_scale_table_lazy_steps_follow_dense_momentum():
     """The tool's lazy steps, flushed, equal dense SGD momentum on the
     same ids and gradients (replayed here in plain PyTorch)."""
     cfg = tst.ScaleConfig(rows=64, dim=4, ids_per_step=24, momentum=0.9,
-                          learning_rate=0.1, device="cpu")
+                          learning_rate=0.1, device="cpu", dtype="float32")
     table, state = tst.init(cfg, torch.device("cpu"))
     dense, m = table.clone(), torch.zeros_like(table)
     step = tst.make_step(cfg, table, state)
@@ -420,7 +420,7 @@ def test_scale_table_runs_on_the_cpu(capsys, momentum):
 @pytest.mark.parametrize("flag,match", [("--n_model", "queue 1 item 8"),
                                         ("--dtype", "bf16")])
 def test_scale_table_refuses_what_is_not_ported(flag, match):
-    value = "2" if flag == "--n_model" else "bfloat16"
+    value = "2" if flag == "--n_model" else "float16"
     with pytest.raises(NotImplementedError, match=match):
         tst.main(["--rows", "64", "--dim", "4", flag, value,
                   "--device", "cpu"])
