@@ -136,11 +136,35 @@ the result line:
                 for bit and the export; each step on the host clock with
                 the device's busy share; the row kernels at the step's
                 shapes (D=64 and D=1); the dense step against its
-                plain-version twin for 5 steps.
+                plain-version twin for 5 steps;
+  14. wiki    - the Wikipedia pipeline: (a) the ETL chain in the port's
+                code on a synthetic MediaWiki dump of 10,000 pages (cut
+                from about 20,000 for the time limit; 300-600 Zipf tokens
+                over a 200,000-word lexicon, 5-30 links, redirects,
+                Template: pages): pages, token documents (native tokenizer), both
+                dictionaries, token co-occurrence (native accumulator,
+                equal to the Python one on a shard), the three
+                sparse-document conversions, url co-occurrence, codex and
+                dump_correlates, GloVe train() and txt2url train() from
+                its checkpoint for 5 steps each, seconds and pages/s per
+                stage; (b) txt2url at the reference's full width (565,537
+                x 64 word and 1,000,000 x 64 URL tables, B=64, L=32,
+                LSTM, margin, RMSprop 1e-3) on synthetic Zipf shards:
+                train() for 20 steps with GloVe transfer from a port
+                checkpoint, one eval round of 16 batches with recall@10
+                over all URLs, both probe hooks, a checkpoint restored bit
+                for bit and the export; 5 steps with the kernels against
+                5 with their plain versions under margin, softmax and
+                reference_exact (LSTM) and margin (mean); the encoder
+                against float64 on the CPU; the step on the host clock
+                with its device breakdown; the row kernels at the step's
+                ids (the pad row's pile-up) against their plain versions
+                and timed against index_select / index_add_.
 
 Each main-path phase (train, harness, serve, int8, modes, sublinear, tool,
-lazy, bf16's scale_table runs, glove's train() runs) sets the launch
-counts to 0 just before it and reads them just after.
+lazy, bf16's scale_table runs, glove's train() runs, wiki's chain and its
+train() runs) sets the launch counts to 0 just before it and reads them
+just after.
 A line gives the seconds each phase took. The second-to-last line is the
 kernel table as JSON, the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -3864,11 +3888,12 @@ def glove_dense_against_plain(card: str, pattern: str, vocab) -> dict:
     return worst
 
 
-def glove_rows_against_plain(card: str, name: str, table, ids, upd, kinds):
-    """The step's row kernels at its ids (both halves of a batch, Zipf
-    repeats and all) against their plain versions on fresh clones of one
-    of the trained tables: the gather bit-equal, the scatter-add within
-    TOL. Returns (gather err, scatter err)."""
+def rows_against_plain(card: str, what: str, table, ids, upd, kinds):
+    """A step's row kernels at its ids (repeats and pile-ups and all)
+    against their plain versions on fresh clones of one of its trained
+    tables: the gather bit-equal, the scatter-add within TOL, rows no id
+    touches untouched, the instantiations ``kinds``. ``what`` names the
+    step and the table. Returns (gather err, scatter err)."""
     import torch
 
     from esrecsys_tpu_torch.kernels import gather_pool as gp
@@ -3886,18 +3911,18 @@ def glove_rows_against_plain(card: str, name: str, table, ids, upd, kinds):
     sa.scatter_add_plain(p, ids, upd)
     torch.cuda.synchronize()
     if not torch.equal(gk, gplain):
-        raise AssertionError(f"glove {name}: gather_pool differs")
+        raise AssertionError(f"{what}: gather_pool differs")
     torch.testing.assert_close(k, p, rtol=TOL, atol=TOL)
     hit = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
     hit[ids.long()] = True
     if not torch.equal(k[~hit], table[~hit]):
-        raise AssertionError(f"glove {name}: scatter_add changed rows no id "
+        raise AssertionError(f"{what}: scatter_add changed rows no id "
                              f"touches")
     want = (kinds[0], 0 if kinds[1] == "f32_generic" else table.shape[1])
     if taken != want:
-        raise AssertionError(f"glove {name}: instantiations {taken}")
+        raise AssertionError(f"{what}: instantiations {taken}")
     s_err = float((k - p).abs().max())
-    log(f"glove step ids on {name} ({tuple(table.shape)}, {ids.shape[0]} "
+    log(f"{what} ({tuple(table.shape)}, {ids.shape[0]} "
         f"ids): gather_pool {kinds[0]} bit-equal to plain; scatter_add "
         f"{kinds[1]} max_abs_err {s_err:.3g} (TOL {TOL}) [{card}]")
     return 0.0, s_err
@@ -3945,8 +3970,8 @@ def phase_glove(card: str) -> dict:
             table = getattr(state.params, name).embedding.detach().clone()
             upd = torch.randn(ids.shape[0], table.shape[1],
                               device="cuda") * 1e-3
-            errs[kinds[0]], errs[kinds[1]] = glove_rows_against_plain(
-                card, name, table, ids, upd, kinds)
+            errs[kinds[0]], errs[kinds[1]] = rows_against_plain(
+                card, f"glove step ids on {name}", table, ids, upd, kinds)
             gather, scatter = time_row_kernels(table, ids, upd)
             timed[kinds[0]], timed[kinds[1]] = gather, scatter
             log(timing_line(f"glove step shapes, {name} ({table.shape[0]} x "
@@ -3965,6 +3990,676 @@ def phase_glove(card: str) -> dict:
                                                           loaded)
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------- wiki
+
+# pages of the synthetic dump, cut from about 20,000: the script must exit
+# within 1,200 s and is held to half of that, so that a host 1.3-1.6x
+# slower (seen between runs) still passes. The chain is host Python and
+# linear in pages (375-381 s at 20,000, where the whole script took 778 s
+# on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md), so 10,000 pages bring
+# the script to about 600 s
+WIKI_PAGES = 10_000
+WIKI_LEXICON = 200_000        # distinct words, drawn Zipf(1.1) by rank
+WIKI_STEPS = 5                # GloVe and txt2url steps on the chain's output
+T2U_WORDS = 500_000           # dictionary tokens: 565,537 word rows
+T2U_URLS = 1_000_000          # title dictionary: the URL table's rows
+T2U_DOCS = 20_000             # synthetic sparse documents, 30 % short
+T2U_ROWS = 20_000             # url2url rows of 20 others each
+T2U_EVAL_STEPS = 16
+# K steps with the kernels against the same steps through the plain
+# versions: the scatter sums duplicate rows (the pad row's pile-up among
+# them) in another order, and RMSprop divides each gradient element by
+# its own root mean square, so an element of a float32-noise gradient
+# can take a different update; at most this share of the compared
+# elements (the rows the steps touch, every element of the dense
+# parameters) may differ by more than 1e-6
+T2U_DIFF_SHARE = 1e-3
+T2U_LOSS_RTOL = 1e-5
+# the encoder on the card against the same encoder in float64 on the CPU:
+# float32 rounding through 32 LSTM steps stays near 1e-6; a TF32 product
+# keeps 10 mantissa bits (about 5e-4 relative)
+T2U_F64_ATOL = 1e-5
+
+
+def write_wiki_dump(path: str, pages: int, seed: int = 0) -> dict:
+    """A MediaWiki export of ``pages`` pages made from ``seed``: articles
+    of 300-600 tokens drawn Zipf(1.1) over a WIKI_LEXICON-word lexicon
+    (every sixth word capitalised) with punctuation, each with 5-30
+    links (half to uniformly drawn pages, half Zipf(1.3), a third with
+    shown text, one in ten into a rejected namespace), 2 % redirects and
+    2 % Template: pages; some titles non-ASCII. Returns the counts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(3, 11, 2 * WIKI_LEXICON)
+    chars = rng.integers(97, 123, (2 * WIKI_LEXICON, 10), dtype=np.uint8)
+    words = list(dict.fromkeys(chars[i, :lens[i]].tobytes().decode()
+                               for i in range(2 * WIKI_LEXICON)))
+    words = [w.capitalize() if i % 6 == 0 else w
+             for i, w in enumerate(words[:WIKI_LEXICON])]
+    titles = [f"{words[i % 5000].capitalize()} {words[(7 * i) % 9973]} {i}"
+              + (" café" if i % 97 == 0 else "") for i in range(pages)]
+    seps = [" "] * 6 + [", ", ". ", "; ", " (", ") "]
+    counts = {"articles": 0, "redirects": 0, "namespace": 0, "tokens": 0,
+              "links": 0}
+    with open(path, "w", encoding="utf-8") as f:
+        f.write('<mediawiki xmlns="http://www.mediawiki.org/xml/'
+                'export-0.10/">\n')
+        for i, title in enumerate(titles):
+            head = (f"<page><title>{{}}</title><ns>{{}}</ns><id>{i + 1}</id>")
+            rev = (f"<revision><id>{10 * i}</id><parentid>{10 * i - 1}"
+                   f"</parentid><timestamp>2020-01-01T00:00:00Z</timestamp>"
+                   f"<contributor><username>u{i % 50}</username><id>"
+                   f"{i % 50}</id></contributor><text>{{}}</text>"
+                   f"</revision></page>\n")
+            if i % 50 == 7:
+                target = titles[(i + 1) % pages]
+                f.write(head.format(title, 0)
+                        + f'<redirect title="{target}"/>'
+                        + rev.format(f"#REDIRECT [[{target}]]"))
+                counts["redirects"] += 1
+                continue
+            n = int(rng.integers(300, 601))
+            toks = (rng.zipf(1.1, n) - 1) % WIKI_LEXICON
+            sep = rng.integers(0, len(seps), n)
+            body = "".join(words[t] + seps[s] for t, s in zip(toks, sep))
+            k = int(rng.integers(5, 31))
+            links = np.where(rng.random(k) < 0.5, rng.integers(0, pages, k),
+                             (rng.zipf(1.3, k) - 1) % pages)
+            parts = []
+            for j, link in enumerate(links):
+                target = titles[link] if j % 10 else f"User:{words[link]}"
+                parts.append(f"[[{target}|{words[link]}]]" if j % 3 == 1
+                             else f"[[{target}]]")
+            text = body + " " + " ".join(parts)
+            if i % 50 == 13:
+                f.write(head.format(f"Template:{title}", 10) + rev.format(text))
+                counts["namespace"] += 1
+                continue
+            f.write(head.format(title, 0) + rev.format(text))
+            counts["articles"] += 1
+            counts["tokens"] += n
+            counts["links"] += k
+        f.write("</mediawiki>\n")
+    return counts
+
+
+def _stage(timings: dict, name: str, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    timings[name] = time.perf_counter() - t0
+    return out
+
+
+def _reset_row_launches():
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+
+    for mod in (gp, sa):
+        mod.LAUNCHES.reset()
+
+
+def _row_launches() -> dict:
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+
+    return {"gather_pool": dict(gp.LAUNCHES.by_instantiation),
+            "scatter_add": dict(sa.LAUNCHES.by_instantiation)}
+
+
+def launches_by_table(fn) -> dict:
+    """Run ``fn()`` with ``ops/lookup.py``'s calls of the row kernels
+    wrapped: per table (by its row count), the launches each kernel's own
+    count gained across that table's calls."""
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.ops import lookup
+
+    by_table = {}
+
+    def counted(name, kernel, counter):
+        def call(table, *args, **kw):
+            before = counter.count
+            out = kernel(table, *args, **kw)
+            got = by_table.setdefault(int(table.shape[0]),
+                                      {"gather_pool": 0, "scatter_add": 0})
+            got[name] += counter.count - before
+            return out
+        return call
+
+    kernels = {"gather_pool": (lookup.gather_pool, gp.LAUNCHES),
+               "scatter_add": (lookup.scatter_add, sa.LAUNCHES)}
+    try:
+        for name, (kernel, counter) in kernels.items():
+            setattr(lookup, name, counted(name, kernel, counter))
+        fn()
+    finally:
+        for name, (kernel, _) in kernels.items():
+            setattr(lookup, name, kernel)
+    return by_table
+
+
+def accumulators_agree(shard: str, vocab, window: int = 10):
+    """The native and the Python accumulator over one shard of token
+    documents: (native s, Python s, entries); raises unless their rows
+    are equal."""
+    import numpy as np
+
+    from esrecsys_tpu_torch import native
+    from esrecsys_tpu_torch.data import recordio
+    from esrecsys_tpu_torch.data.protos import TextDocument
+    from esrecsys_tpu_torch.etl import cooccurrence
+
+    ids = [vocab.embedding_indices(d.tokens)
+           for d in recordio.read_protos(shard, TextDocument)]
+    out = []
+    for acc in (native.NativeCoocAccumulator(),
+                cooccurrence.PyCoocAccumulator()):
+        t0 = time.perf_counter()
+        for doc in ids:
+            acc.add_window(doc, window)
+        rows = acc.export()
+        out.append((time.perf_counter() - t0, rows))
+    (t_native, a), (t_py, b) = out
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"the accumulators differ on {shard}")
+    return t_native, t_py, int(a[0].shape[0])
+
+
+def run_wiki_chain(card: str, root: str, device: str = "cuda") -> dict:
+    """(a) The Wikipedia chain in the port's own code on a synthetic dump:
+    XML -> pages -> token documents (native tokenizer) -> both
+    dictionaries -> token co-occurrence (native accumulator, checked
+    against the Python one on a shard) -> txt2url, url2url and tf-idf
+    documents -> url co-occurrence -> codex and dump_correlates on a
+    shard -> GloVe train() -> txt2url train() with GloVe transfer, to a
+    txt2url artifact. Seconds and pages/s per stage."""
+    import contextlib
+    import io
+
+    from esrecsys_tpu_torch import native
+    from esrecsys_tpu_torch.core.tracking import MemoryTracker
+    from esrecsys_tpu_torch.data.vocab import Vocabulary
+    from esrecsys_tpu_torch.etl import (cooccurrence, dictionary,
+                                        sparse_docs, wiki)
+    from esrecsys_tpu_torch.tools import codex, dump_correlates
+    from esrecsys_tpu_torch.train.export import load_model
+    from esrecsys_tpu_torch.workloads import glove as gl
+    from esrecsys_tpu_torch.workloads import txt2url as t2u
+
+    os.makedirs(root, exist_ok=True)
+    xml = os.path.join(root, "dump.xml")
+    sec = {}
+    counts = _stage(sec, "dump", lambda: write_wiki_dump(xml, WIKI_PAGES))
+    n_pages = _stage(sec, "xml2proto", lambda: wiki.xml_to_pages(
+        xml, f"{root}/pages"))
+    if wiki.tokenizer() is not native.tokenize:
+        raise AssertionError("the native tokenizer did not load")
+    n_docs = _stage(sec, "tokenize", lambda: wiki.tokenize_pages(
+        f"{root}/pages/part-*", f"{root}/docs"))
+    docs = f"{root}/docs/part-*"
+    tok = _stage(sec, "token_dictionary",
+                 lambda: dictionary.build_token_dictionary(docs))
+    titles = _stage(sec, "title_dictionary",
+                    lambda: dictionary.build_title_dictionary(docs))
+    tok_path, title_path = f"{root}/tokens.bz2", f"{root}/titles.bz2"
+    _stage(sec, "dictionaries_saved", lambda: (tok.save(tok_path),
+                                               titles.save(title_path)))
+    if type(cooccurrence.make_accumulator()) is not \
+            native.NativeCoocAccumulator:
+        raise AssertionError("the native accumulator did not load")
+    n_cooc = _stage(sec, "token_cooccurrence",
+                    lambda: cooccurrence.build_token_cooccurrence(
+                        docs, tok, f"{root}/cooc"))
+    t_native, t_py, entries = accumulators_agree(
+        f"{root}/docs/part-00000.bz2", tok)
+    n_sparse = {}
+    for mode in ("txt2url", "url2url", "tfidf"):
+        n_sparse[mode] = _stage(sec, mode, lambda: sparse_docs.convert(
+            mode, docs, f"{root}/{mode}", tok, titles))
+    n_url = _stage(sec, "url_cooccurrence",
+                   lambda: cooccurrence.build_url_cooccurrence(
+                       f"{root}/url2url/part-*", f"{root}/url_cooc"))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        n_codex = codex.main(["--input", f"{root}/docs/part-00000.bz2",
+                              "--proto", "doc", "--limit", "3"])
+        dice = dump_correlates.main([
+            "--input", f"{root}/url_cooc/part-00000.bz2", "--dictionary",
+            title_path, "--metric", "dice", "--scale", "2.0", "--limit",
+            "5"])
+        counted = dump_correlates.main([
+            "--input", f"{root}/cooc/part-00000.bz2", "--dictionary",
+            tok_path, "--embedding_indices", "true", "--limit", "5"])
+    if n_codex != 3 or printed.getvalue().count("primary: ") != 3 \
+            or len(dice) != 5 or len(counted) != 5:
+        raise AssertionError(f"codex {n_codex}, dump_correlates "
+                             f"{len(dice)}, {len(counted)}")
+    if not (n_docs and n_cooc and n_url and all(n_sparse.values())):
+        raise AssertionError(f"an empty stage: docs {n_docs}, rows "
+                             f"{n_cooc}, url rows {n_url}, {n_sparse}")
+    # the trainers on the chain's output
+    probes = ",".join(tok.token(i) for i in range(3))
+    gcfg = gl.GloveConfig(
+        train_pattern=f"{root}/cooc/part-*", token_dictionary=tok_path,
+        work_dir=f"{root}/glove", steps_per_epoch=WIKI_STEPS, num_epochs=1,
+        shuffle_buffer_size=65_536, eval_steps=2, terms=probes)
+    g_res = _stage(sec, "glove_train", lambda: gl.train(
+        gcfg, tracker=MemoryTracker(), device=device))
+    tcfg = t2u.Txt2UrlConfig(
+        txt2url_pattern=f"{root}/txt2url/part-*",
+        url2url_pattern=f"{root}/url_cooc/part-*",
+        token_dictionary=tok_path, title_dictionary=title_path,
+        work_dir=f"{root}/txt2url_run", steps_per_epoch=WIKI_STEPS,
+        num_epochs=1, shuffle_buffer=2048,
+        glove_checkpoint=f"{root}/glove/checkpoints",
+        eval_txt2url_pattern=f"{root}/txt2url/part-*",
+        eval_every_steps=WIKI_STEPS, eval_steps=2, probe_words=probes,
+        probe_sentences=" ".join(tok.token(i) for i in range(5)))
+    t_res = _stage(sec, "txt2url_train", lambda: t2u.train(
+        tcfg, tracker=MemoryTracker(), device=device))
+    params, _, meta = load_model(os.path.join(
+        tcfg.work_dir, "artifacts", f"txt2url-{WIKI_STEPS:08d}.npz"))
+    rows = Vocabulary.load(tok_path).num_embeddings
+    if g_res.state.step != WIKI_STEPS or t_res.state.step != WIKI_STEPS \
+            or meta["valid_rows"] != {"word_embed": rows,
+                                      "url_embed": len(titles)} \
+            or params["url_embedding"]["embedding"].shape != (len(titles), 64) \
+            or not 0 <= t_res.last_eval_metrics["eval_recall_at_k"] <= 1:
+        raise AssertionError(f"wiki trainers: glove step {g_res.state.step},"
+                             f" txt2url step {t_res.state.step}, {meta}, "
+                             f"{t_res.last_eval_metrics}")
+    per_stage = ", ".join(
+        f"{k} {v:.2f} s ({WIKI_PAGES / v:.0f} pages/s)"
+        for k, v in sec.items())
+    log(f"wiki chain on a synthetic dump of {WIKI_PAGES} pages "
+        f"({counts['articles']} articles of {counts['tokens']} tokens and "
+        f"{counts['links']} links, {counts['redirects']} redirects, "
+        f"{counts['namespace']} Template: pages; {os.path.getsize(xml)} "
+        f"bytes): {n_pages} pages, {n_docs} documents, dictionaries of "
+        f"{len(tok)} tokens and {len(titles)} titles, {n_cooc} token "
+        f"co-occurrence rows, sparse documents {n_sparse}, {n_url} url "
+        f"rows; GloVe {WIKI_STEPS} steps (loss "
+        f"{g_res.last_train_metrics.get('train_loss', float('nan')):.5f}), "
+        f"txt2url {WIKI_STEPS} steps from its checkpoint (eval recall@10 "
+        f"{t_res.last_eval_metrics['eval_recall_at_k']:.4f}) to "
+        f"txt2url-{WIKI_STEPS:08d}.npz [{card}]")
+    log(f"wiki chain stages (host clock, pages/s of the dump's pages): "
+        f"{per_stage}")
+    log(f"wiki token co-occurrence of docs/part-00000 ({entries} entries): "
+        f"native accumulator {t_native:.3f} s, Python {t_py:.3f} s, rows "
+        f"equal; the chain used the native one")
+    return {"seconds": sec, "accumulators": (t_native, t_py)}
+
+
+def _t2u_vocabularies():
+    """The full-width dictionaries in memory: T2U_WORDS tokens (the GloVe
+    probe terms first) and T2U_URLS titles with Zipf document
+    frequencies."""
+    import numpy as np
+
+    from esrecsys_tpu_torch.data.vocab import VocabEntry, Vocabulary
+
+    probes = GLOVE_PROBES.split(",")
+    tokens = probes + [f"w{i:06d}" for i in range(T2U_WORDS - len(probes))]
+    words = Vocabulary([VocabEntry(token=t, frequency=T2U_WORDS - i,
+                                   doc_frequency=1)
+                        for i, t in enumerate(tokens)])
+    df = np.minimum(np.random.default_rng(1).zipf(1.5, T2U_URLS), 10 ** 6)
+    titles = Vocabulary([VocabEntry(token=f"https://en.wikipedia.org/wiki/"
+                                    f"T{i:07d}", frequency=int(d),
+                                    doc_frequency=int(d))
+                         for i, d in enumerate(df.tolist())])
+    return words, titles
+
+
+def write_t2u_data(root: str, words, seed: int = 0):
+    """T2U_DOCS sparse documents (3 in 10 shorter than 32 tokens, the
+    rest 32-400, token ids Zipf over the word rows) and T2U_ROWS url2url
+    rows, Zipf ids, written by the port's codec: their patterns."""
+    import numpy as np
+
+    from esrecsys_tpu_torch.data import recordio
+    from esrecsys_tpu_torch.data.protos import (CooccurrenceRow,
+                                                SparseDocument)
+
+    rng = np.random.default_rng(seed)
+    vocab_rows = words.num_embeddings - 1
+    with recordio.ShardedWriter(os.path.join(root, "txt2url"),
+                                records_per_shard=5000) as w:
+        for i in range(T2U_DOCS):
+            n = (int(rng.integers(1, 32)) if rng.random() < 0.3
+                 else int(rng.integers(32, 401)))
+            toks = (rng.zipf(1.1, n) - 1) % vocab_rows + 1
+            w.write_proto(SparseDocument(
+                primary_index=int((rng.zipf(1.2) - 1) % T2U_URLS),
+                token_index=toks))
+    with recordio.ShardedWriter(os.path.join(root, "url_cooc"),
+                                records_per_shard=5000) as w:
+        for i in range(T2U_ROWS):
+            index = int((rng.zipf(1.2) - 1) % T2U_URLS)
+            others = (rng.zipf(1.2, 20) - 1) % T2U_URLS
+            w.write_proto(CooccurrenceRow(
+                index=index, other_index=others,
+                count=rng.integers(1, 6, 20).astype(np.float32)))
+    return (os.path.join(root, "txt2url", "part-*.bz2"),
+            os.path.join(root, "url_cooc", "part-*.bz2"))
+
+
+def encoder_against_f64(card: str, model, tokens) -> float:
+    """The sentence encoder on the card against the same parameters in
+    float64 on the CPU (no TF32 anywhere): the largest difference."""
+    import copy
+
+    import torch
+
+    enc = model.encoder
+    with torch.no_grad():
+        got = model.encode_text(tokens).double().cpu()
+        t = tokens.cpu().long()
+        emb = enc.word_embedding.embedding.detach().double().cpu()[t]
+        if enc.encoder_type == "lstm":
+            rnn = copy.deepcopy(enc.rnn).cpu().double()
+            hidden = rnn(emb, (t != 0).sum(-1))
+        else:
+            m = (t != 0).double()[..., None]
+            hidden = (emb * m).sum(-2) / m.sum(-2).clamp(min=1.0)
+        want = copy.deepcopy(enc.to_url).cpu().double()(hidden)
+    err = float((got - want).abs().max())
+    if not err <= T2U_F64_ATOL:
+        raise AssertionError(f"txt2url {enc.encoder_type} encoder on the "
+                             f"card differs from float64 by {err}")
+    return err
+
+
+def t2u_against_plain(card: str, cfg, rows: tuple, batches,
+                      objective: str, encoder: str) -> dict:
+    """K_STEPS steps of one objective and encoder with the kernels
+    against the same steps with their plain versions on the card, from
+    one init: loss within T2U_LOSS_RTOL, at most T2U_DIFF_SHARE of the
+    compared elements over 1e-6 apart."""
+    import torch
+
+    from esrecsys_tpu_torch.workloads import txt2url as t2u
+
+    cfg = dataclasses.replace(cfg, text_objective=objective,
+                              encoder_type=encoder)
+    runs = []
+    for plain in (False, True):
+        model, state = t2u.init_state(cfg, *rows, "cuda")
+        step = t2u.make_train_step(model, cfg)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        runs.append((model, losses))
+    (mk, lk), (mp, lp) = runs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    word_ids = torch.unique(torch.cat([b["tokens"].reshape(-1)
+                                       for b in batches]).long())
+    url_ids = torch.unique(torch.cat([b[k] for b in batches for k in (
+        "url_near_text", "url1", "url2")]).long())
+    pk, pp = dict(mk.named_parameters()), dict(mp.named_parameters())
+    over = total = 0
+    worst = 0.0
+    for name, a in pk.items():
+        a, b = a.detach(), pp[name].detach()
+        if name == "encoder.word_embedding.embedding":
+            a, b = a[word_ids], b[word_ids]
+        elif name == "url_embedding.embedding":
+            a, b = a[url_ids], b[url_ids]
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()))
+        over += int((diff > 1e-6).sum())
+        total += diff.numel()
+    share = over / total
+    if loss_rel > T2U_LOSS_RTOL or share > T2U_DIFF_SHARE:
+        raise AssertionError(f"txt2url {objective}/{encoder}: loss rel "
+                             f"{loss_rel}, share over 1e-6 {share}")
+    log(f"txt2url {objective}/{encoder}, {K_STEPS} steps with the kernels "
+        f"against their plain versions on the card from one init: loss max "
+        f"relative diff {loss_rel:.3g} (bound {T2U_LOSS_RTOL}); over "
+        f"{total} compared elements (the {word_ids.numel()} word and "
+        f"{url_ids.numel()} URL rows touched, the dense parameters) max abs "
+        f"diff {worst:.3g}, share over 1e-6 {share:.3g} (bound "
+        f"{T2U_DIFF_SHARE}) [{card}]")
+    return {"loss_rel": loss_rel, "share": share, "worst": worst}
+
+
+def run_t2u_full_width(card: str, root: str) -> dict:
+    """(b) txt2url at the reference's full width: 565,537 word rows and
+    1,000,000 URL rows, Txt2UrlConfig's defaults (B=64, L=32, LSTM,
+    RMSprop at 1e-3, margin); train() for STEPS steps from synthetic
+    shards with GloVe transfer from a port checkpoint at that width, one
+    eval round of T2U_EVAL_STEPS batches with recall@10 over the whole
+    URL table, both probe hooks, a checkpoint restored bit for bit and the
+    export; then the kernels against their plain versions (K steps under
+    each objective, the row kernels at the step's ids with the pad row's
+    pile-up), the encoder against float64, the step on the host clock
+    with its device breakdown, and the row kernels timed at its shapes."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.core.tracking import MemoryTracker
+    from esrecsys_tpu_torch.data import pipelines
+    from esrecsys_tpu_torch.train import Checkpointer
+    from esrecsys_tpu_torch.train.export import load_model
+    from esrecsys_tpu_torch.workloads import glove as gl
+    from esrecsys_tpu_torch.workloads import txt2url as t2u
+
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    t0 = time.perf_counter()
+    words, titles = _t2u_vocabularies()
+    t_vocab = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    docs, pairs = write_t2u_data(root, words)
+    t_data = time.perf_counter() - t0
+    rows = (words.num_embeddings, len(titles))
+    if rows != (565_537, 1_000_000):
+        raise AssertionError(f"txt2url tables {rows}")
+    # a port GloVe checkpoint at the word table's width
+    _, gstate = gl.init_state(gl.GloveConfig(), rows[0], "cuda")
+    glove_dir = os.path.join(root, "glove_ckpt")
+    Checkpointer(glove_dir).save(1, gstate)
+    glove_table = gstate.params.token_embedding.embedding.detach()[
+        :rows[0]].clone()
+    del gstate
+    log(f"txt2url data: dictionaries of {T2U_WORDS} tokens ({rows[0]} word "
+        f"rows) and {T2U_URLS} titles built in {t_vocab:.1f} s; {T2U_DOCS} "
+        f"sparse documents and {T2U_ROWS} url2url rows (Zipf ids) written "
+        f"by the port's codec in {t_data:.1f} s [{card}]")
+
+    cfg = t2u.Txt2UrlConfig(
+        txt2url_pattern=docs, url2url_pattern=pairs,
+        work_dir=os.path.join(root, "run"), steps_per_epoch=STEPS,
+        num_epochs=1, glove_checkpoint=glove_dir, eval_txt2url_pattern=docs,
+        eval_every_steps=STEPS, eval_steps=T2U_EVAL_STEPS,
+        probe_words="news,apple,computer",
+        probe_sentences="news about apple computers|physics and math")
+    tracker = MemoryTracker()
+    records = _Records()
+    tlog = logging.getLogger("esrecsys_tpu_torch.workloads.txt2url")
+    tlog.setLevel(logging.INFO)
+    tlog.addHandler(records)
+    _reset_row_launches()
+    try:
+        t0 = time.perf_counter()
+        res = t2u.train(cfg, tracker=tracker, device="cuda",
+                        token_vocab=words, title_vocab=titles)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+    finally:
+        tlog.removeHandler(records)
+    launches = _row_launches()
+    ev = res.last_eval_metrics
+    probes = [m for m in records.lines if m.startswith(("word_nn step=",
+                                                        "sentence_nn step="))]
+    want = {"gather_pool": {"f32x4"}, "scatter_add": {"f32_d64"}}
+    if res.state.step != STEPS or not ev \
+            or not 0 <= ev["eval_mrr_at_k"] <= ev["eval_recall_at_k"] <= 1 \
+            or not np.isfinite(ev["eval_loss"]) or len(probes) != 5 \
+            or not any(m.startswith("transferred GloVe") for m in records.lines) \
+            or any(set(launches[k]) != v for k, v in want.items()):
+        raise AssertionError(f"txt2url train(): step {res.state.step}, eval "
+                             f"{ev}, {len(probes)} probe lines, launches "
+                             f"{launches}")
+    model = res.state.params
+    # rows no step touched keep the GloVe rows bit for bit: their RMSprop
+    # update is 0 and their norms are under the 3.0 cap
+    kept = float((model.encoder.word_embedding.embedding.detach()
+                  == glove_table).all(-1).float().mean())
+    del glove_table
+    if kept < 0.9:
+        raise AssertionError(f"txt2url: {kept} of the word rows hold the "
+                             f"GloVe rows")
+    if model.encoder.word_embedding.embedding.shape != (rows[0], 64) \
+            or model.url_embedding.embedding.shape != (rows[1], 64):
+        raise AssertionError("txt2url tables are padded")
+    params, _, meta = load_model(os.path.join(
+        cfg.work_dir, "artifacts", f"txt2url-{STEPS:08d}.npz"))
+    if meta["valid_rows"] != {"word_embed": rows[0], "url_embed": rows[1]} \
+            or not np.array_equal(params["url_embedding"]["embedding"],
+                                  model.url_embedding.embedding.detach()
+                                  .cpu().numpy()):
+        raise AssertionError(f"txt2url export: {meta}")
+    ck = Checkpointer(os.path.join(cfg.work_dir, "checkpoints"))
+    _, fresh = t2u.init_state(dataclasses.replace(cfg, seed=1), *rows,
+                              "cuda")
+    restored = ck.restore(fresh)
+    bad = [n for n, t in model.state_dict().items()
+           if not torch.equal(t, restored.params.state_dict()[n])]
+    bad += [n for n, t in res.state.opt_state["nu"].items()
+            if not torch.equal(t, restored.opt_state["nu"][n])]
+    if bad or restored.step != STEPS:
+        raise AssertionError(f"txt2url checkpoint differs: {bad}")
+    del fresh, restored
+    windows = [m["train_loss"] for _, m in tracker.records
+               if "train_loss" in m]
+    ms = [m["ms_per_step"] for _, m in tracker.records if "ms_per_step" in m]
+    log(f"txt2url train() at full width ({rows[0]} x 64 word and "
+        f"{rows[1]} x 64 URL tables, B=64, L=32, LSTM, margin, RMSprop 1e-3, "
+        f"{STEPS} steps, shuffle buffer {cfg.shuffle_buffer}): "
+        f"{path_s:.1f} s with the GloVe transfer, one eval round of "
+        f"{T2U_EVAL_STEPS} batches ({res.eval_round_s[0] * 1e3:.1f} ms: "
+        f"recall@10 {ev['eval_recall_at_k']:.4f}, mrr@10 "
+        f"{ev['eval_mrr_at_k']:.4f} over all {rows[1]} URLs), "
+        f"{len(probes)} probe lines, {kept:.4f} of the word rows still the "
+        f"GloVe checkpoint's (the rest moved), a checkpoint ({res.ckpt_save_s[0]:.2f} s"
+        f", restored bit for bit) and the export; train loss {windows}; "
+        f"fit's ms/step {ms} (host clock, data included); launches "
+        f"{launches} [{card}]")
+    log(f"txt2url probes at step {STEPS}: {probes[0][:120]} | "
+        f"{probes[-1][:120]}")
+    out["launches"] = launches
+    out["eval"] = ev
+
+    # the step's batches, unshuffled, on the card
+    feed = pipelines.txt2url_batches(
+        docs, pairs, np.asarray([titles.doc_frequency(i) for i in
+                                 range(len(titles))], np.float64), 64, 32, 4)
+    batches = [t2u.to_device(next(feed), torch.device("cuda"))
+               for _ in range(K_STEPS)]
+    batch = batches[0]
+    pads = int((batch["tokens"] == 0).sum())
+    # launches of one step, per table, counted by the kernels themselves
+    step = t2u.make_train_step(model, cfg)
+    _reset_row_launches()
+    by_table = launches_by_table(lambda: (step(res.state, batch),
+                                          torch.cuda.synchronize()))
+    per_step = _row_launches()
+    one_each = {"gather_pool": 1, "scatter_add": 1}
+    if by_table != {rows[0]: one_each, rows[1]: one_each} or per_step != {
+            "gather_pool": {"f32x4": 2}, "scatter_add": {"f32_d64": 2}}:
+        raise AssertionError(f"txt2url step launches: by table {by_table}"
+                             f", by instantiation {per_step}")
+    out["per_step"] = {"word_table": by_table[rows[0]],
+                       "url_table": by_table[rows[1]]}
+    step_ms = host_ms(lambda: (step(res.state, batch),
+                               torch.cuda.synchronize()), 10)
+    wall, busy, top = device_breakdown(
+        lambda: (step(res.state, batch), torch.cuda.synchronize()), 5)
+    busy_txt = ("device time not measured" if busy is None else
+                f"device busy {busy:.3f} ms (idle share "
+                f"{1 - busy / wall:.2f}); largest: "
+                + ", ".join(f"{k[:40]} {v * 1e3:.1f} us"
+                            for k, v in top[:4]))
+    log(f"txt2url step (LSTM, margin, B=64, L=32, {pads} of 2048 token "
+        f"slots the pad id 0): {step_ms:.3f} ms on the host clock (median "
+        f"of 10, one batch on the card); under the profiler {wall:.3f} ms, "
+        f"{busy_txt}; launches a step {per_step}, by table "
+        f"{out['per_step']} [{card}]")
+    out["step_ms"], out["busy"], out["wall"] = step_ms, busy, wall
+    f64 = {"lstm": encoder_against_f64(card, model, batch["tokens"])}
+    mean, _ = t2u.init_state(dataclasses.replace(cfg, encoder_type="mean"),
+                             *rows, "cuda")
+    with torch.no_grad():
+        mean.encoder.word_embedding.embedding.copy_(
+            model.encoder.word_embedding.embedding)
+    f64["mean"] = encoder_against_f64(card, mean, batch["tokens"])
+    del mean
+    log(f"txt2url encoder on the card against float64 on the CPU (the "
+        f"batch's 64 x 32 tokens, trained word table): max abs diff "
+        + ", ".join(f"{k} {v:.3g}" for k, v in f64.items())
+        + f" (bound {T2U_F64_ATOL}) [{card}]")
+    # the row kernels at the step's ids: the word table with the pad row's
+    # pile-up, the URL table at the three lookups' 192 ids
+    word_ids = batch["tokens"].reshape(-1).contiguous()
+    url_ids = torch.cat([batch[k] for k in ("url_near_text", "url1",
+                                            "url2")]).contiguous()
+    timed, errs = {}, {}
+    for name, table, ids in (
+            ("word_table", model.encoder.word_embedding.embedding, word_ids),
+            ("url_table", model.url_embedding.embedding, url_ids)):
+        table = table.detach().clone()
+        upd = torch.randn(ids.shape[0], 64, device="cuda") * 1e-3
+        errs[name] = rows_against_plain(
+            card, f"txt2url step ids on the {name}", table, ids, upd,
+            ("f32x4", "f32_d64"))
+        gather, scatter = time_row_kernels(table, ids, upd)
+        timed[name] = {"gather_pool": gather, "scatter_add": scatter}
+        log(timing_line(
+            f"txt2url step shapes, {name} ({table.shape[0]} x 64 float32, "
+            f"{ids.shape[0]} ids, {int(torch.unique(ids).numel())} distinct"
+            f"{f', {pads} on the pad row' if name == 'word_table' else ''}),"
+            f" device time per call from a cold, clean L2, write-back "
+            f"included (profiler, 50 calls)", gather, scatter) + f" [{card}]")
+        del table, upd
+    out["timed"], out["errs"] = timed, errs
+    del res, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K steps with the kernels against the plain versions, per objective
+    out["vs_plain"] = {}
+    for objective, encoder in (("margin", "lstm"), ("softmax", "lstm"),
+                               ("reference_exact", "lstm"),
+                               ("margin", "mean")):
+        out["vs_plain"][f"{objective}/{encoder}"] = t2u_against_plain(
+            card, cfg, rows, batches, objective, encoder)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_wiki(card: str) -> dict:
+    """The Wikipedia pipeline: (a) the chain from a synthetic XML dump to
+    a trained txt2url artifact, (b) txt2url at the reference's full
+    width. The launch counts of both main paths are summed."""
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        _reset_row_launches()
+        out["chain"] = run_wiki_chain(card, os.path.join(root, "chain"))
+        chain_launches = _row_launches()
+        log(f"wiki chain launches {chain_launches} [{card}]")
+        full = run_t2u_full_width(card, os.path.join(root, "t2u"))
+    out.update(full)
+    launches = {k: sum(chain_launches[k].values())
+                + sum(full["launches"][k].values())
+                for k in ("gather_pool", "scatter_add")}
+    out["launch_totals"] = launches
     return out
 
 
@@ -4062,6 +4757,7 @@ def main() -> int:
         lazy_res = timed("lazy", phase_lazy, card, train_res)
         bf16_res = timed("bf16", phase_bf16, card)
         glove_res = timed("glove", phase_glove, card)
+        wiki_res = timed("wiki", phase_wiki, card)
         log(f"seconds per phase: {spent}")
     except Exception:
         traceback.print_exc()
@@ -4087,21 +4783,34 @@ def main() -> int:
             ("fused_affinity", "esrecsys_tpu/retrieval/fused.py:453")):
         r = train_res[name]
         # the serving phases' launches: the deploy cycles' training, the
-        # IVF builds and rescores; the bf16 and glove paths'
+        # IVF builds and rescores; the bf16, glove and wiki paths
         served = sum(res["launches"].get(name, 0)
                      for res in (modes_res, sub_res))
         inst = new_paths.get(name, {})
+        wiki_err = ({"gather_pool": 0, "scatter_add": 1}.get(name))
         row = {
             "name": name, "route": "cuda",
             "source": f"esrecsys_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
             "launches": r["launches"] + served
-            + new_launches.get(name, 0),
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            + new_launches.get(name, 0)
+            + wiki_res["launch_totals"].get(name, 0),
+            "max_abs_err": r["max_abs_err"] if wiki_err is None else max(
+                r["max_abs_err"], *(e[wiki_err]
+                                    for e in wiki_res["errs"].values())),
+            "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         if inst:
             row["instantiations"] = inst
+        if wiki_err is not None:
+            # the txt2url step's shapes (the wiki phase): f32x4 / f32_d64
+            row["txt2url_shapes"] = {
+                table: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                                t[name]), bound_by="bytes",
+                            launches_per_step=wiki_res["per_step"][table][
+                                name])
+                for table, t in wiki_res["timed"].items()}
         rows.append(row)
     rows.append({
         "name": "fused_scan_int8", "route": "cuda",

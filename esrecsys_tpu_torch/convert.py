@@ -6,9 +6,12 @@ The JAX tree of ``PlaylistModel`` is ``{"album_embed": {"embedding": a},
 tensors ``album_embed.embedding`` and ``artist_embed.embedding``. The
 mapping is the path joined with dots, so it holds for any model whose
 module names mirror the reference's (``Glove``'s ``token_embedding`` and
-``bias`` too). Train states cross with their optimizer state: the
-playlist's momentum carriers and SGD trace, GloVe's optax Adam state or
-LazyAdam moments.
+``bias`` too; ``Txt2UrlModel``'s LSTM names its eight ``Dense`` kernels
+``encoder.rnn.cell.ii.kernel`` ... ``encoder.rnn.cell.ho.bias`` as flax's
+``OptimizedLSTMCell`` does, kernels ``(in, out)`` both sides). Train
+states cross with their optimizer state: the playlist's momentum
+carriers and SGD trace, GloVe's optax Adam state or LazyAdam moments,
+txt2url's RMSprop ``nu``.
 """
 
 from __future__ import annotations
@@ -137,3 +140,64 @@ def state_from_jax(jax_state, cfg, device=None):
                 state.opt_state.state[p]["momentum_buffer"] = (
                     bufs[name].to(p.device).clone())
     return state
+
+
+def _optax_rms_nu(opt_state):
+    """The ``nu`` tree of an optax ``scale_by_rms`` state (alone or in a
+    chain), or None."""
+    parts = opt_state if isinstance(opt_state, tuple) else (opt_state,)
+    for part in parts:
+        if hasattr(part, "nu") and not hasattr(part, "mu"):
+            return part.nu
+    return None
+
+
+def txt2url_model_from_jax(params: Mapping[str, Any], cfg,
+                           device=None):
+    """A ``Txt2UrlModel`` holding the JAX txt2url ``params`` (numpy or JAX
+    arrays; the vocabulary sizes are the tables' row counts) for the same
+    ``Txt2UrlConfig`` widths and encoder, on ``device`` (default: the
+    card)."""
+    from esrecsys_tpu_torch.core.device import resolve_device
+    from esrecsys_tpu_torch.models.txt2url import Txt2UrlModel
+
+    words = np.shape(params["encoder"]["word_embedding"]["embedding"])[0]
+    urls = np.shape(params["url_embedding"]["embedding"])[0]
+    model = Txt2UrlModel(words, urls, cfg.word_dim, cfg.rnn_size,
+                         cfg.url_dim, cfg.encoder_type,
+                         device=resolve_device(device))
+    model.load_state_dict(params_from_jax(params))
+    return model
+
+
+def txt2url_state_from_jax(jax_state, cfg, device=None):
+    """A JAX txt2url ``TrainState`` -> the port's for the same
+    ``Txt2UrlConfig``: params (:func:`txt2url_model_from_jax`), ``step``
+    (optax's schedule count) and RMSprop's ``nu`` per parameter."""
+    from esrecsys_tpu_torch.train.state import TrainState
+
+    model = txt2url_model_from_jax(jax_state.params, cfg, device)
+    nu_tree = _optax_rms_nu(jax_state.opt_state)
+    if nu_tree is None:
+        raise ValueError("the JAX state holds no optax RMSprop state")
+    by_name = dict(model.named_parameters())
+    nu = params_from_jax(nu_tree)
+    if set(nu) != set(by_name):
+        raise ValueError(f"RMSprop state {sorted(nu)} != parameters "
+                         f"{sorted(by_name)}")
+    nu = {k: v.to(by_name[k].device) for k, v in nu.items()}
+    return TrainState(step=int(np.asarray(jax_state.step)), params=model,
+                      opt_state={"nu": nu})
+
+
+def txt2url_model_from_artifact(path: str, device=None):
+    """(model, metadata) of a txt2url artifact written by either package:
+    the widths and the encoder from its ``__meta__`` and parameters."""
+    from types import SimpleNamespace
+
+    from esrecsys_tpu_torch.train.export import load_model
+
+    params, _, meta = load_model(path)
+    widths = SimpleNamespace(**{k: meta[k] for k in (
+        "word_dim", "rnn_size", "url_dim", "encoder_type")})
+    return txt2url_model_from_jax(params, widths, device), meta

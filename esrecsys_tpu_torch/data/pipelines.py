@@ -1,8 +1,9 @@
-"""Input pipelines (counterpart of the GloVe and playlist parts of
-``esrecsys_tpu/data/pipelines.py``): GloVe's co-occurrence triples and
-batches from ``CooccurrenceRow`` shards; the playlist's fixed-shape numpy
-batches from TFRecord files or from packed ``.npz`` shards, and the track
-corpus.
+"""Input pipelines (counterpart of ``esrecsys_tpu/data/pipelines.py``):
+GloVe's co-occurrence triples and batches from ``CooccurrenceRow``
+shards; the playlist's fixed-shape numpy batches from TFRecord files or
+from packed ``.npz`` shards, and the track corpus; txt2url's sentence
+windows of ``SparseDocument`` shards, its url2url dice triples and their
+joint batches.
 
 Batches are plain numpy; the caller moves them to the card. Differences
 from the reference: ``playlist_batches`` reads its files with
@@ -23,7 +24,7 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 
 from esrecsys_tpu_torch.data import recordio, tfrecord
-from esrecsys_tpu_torch.data.protos import CooccurrenceRow
+from esrecsys_tpu_torch.data.protos import CooccurrenceRow, SparseDocument
 from esrecsys_tpu_torch.data.recordio import shuffled
 from esrecsys_tpu_torch.data.vocab import JsonVocab
 
@@ -251,3 +252,82 @@ def load_track_corpus(
         "num_albums": len(album_vocab),
         "num_artists": len(artist_vocab),
     }
+
+
+# -------------------------------------------------------------- txt2url
+
+def sparse_doc_sentences(pattern: str, sentence_length: int,
+                         max_sentences_per_doc: int = 4, repeat: bool = True,
+                         seed: int = 0) -> Iterator[Tuple[int, np.ndarray]]:
+    """(primary url index, int32 token window of ``sentence_length``)
+    pairs of ``SparseDocument`` shards, files in
+    ``recordio.proto_stream``'s shuffled order for ``seed``: a document of
+    at most ``sentence_length`` tokens zero-padded at the end, a longer
+    one as ``max_sentences_per_doc`` windows at random starts in ``[0, n
+    - sentence_length)``; documents without tokens skipped. The draws
+    come from ``np.random.default_rng(seed)`` in the reference's order."""
+    rng = np.random.default_rng(seed)
+    for sdoc in recordio.proto_stream(pattern, SparseDocument,
+                                      shuffle_files=True, repeat=repeat,
+                                      seed=seed):
+        tokens = np.asarray(sdoc.token_index, dtype=np.int32)
+        n = tokens.shape[0]
+        if n == 0:
+            continue
+        if n <= sentence_length:
+            out = np.zeros(sentence_length, np.int32)
+            out[:n] = tokens
+            yield int(sdoc.primary_index), out
+        else:
+            for _ in range(max_sentences_per_doc):
+                start = int(rng.integers(0, n - sentence_length))
+                yield (int(sdoc.primary_index),
+                       tokens[start:start + sentence_length])
+
+
+def url_dice_triples(pattern: str, doc_frequency: np.ndarray,
+                     repeat: bool = True, seed: int = 0
+                     ) -> Iterator[Tuple[int, int, float]]:
+    """(url1, url2, dice) of url2url ``CooccurrenceRow`` shards, dice =
+    ``2 joint / (df_1 + df_2)`` with ``doc_frequency[i]`` the title
+    dictionary's document frequency of index i."""
+    for row in recordio.proto_stream(pattern, CooccurrenceRow,
+                                     shuffle_files=True, repeat=repeat,
+                                     seed=seed):
+        df_main = float(doc_frequency[row.index])
+        for other, joint in zip(row.other_index, row.count):
+            dice = 2.0 * float(joint) / (float(doc_frequency[other])
+                                         + df_main)
+            yield int(row.index), int(other), dice
+
+
+def txt2url_batches(txt2url_pattern: str, url2url_pattern: str,
+                    doc_frequency: np.ndarray, batch_size: int,
+                    sentence_length: int = 32,
+                    max_sentences_per_doc: int = 4, shuffle_buffer: int = 0,
+                    seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless joint batches of the two objectives: ``url_near_text``
+    (B,) int32 and ``tokens`` (B, L) int32 from
+    :func:`sparse_doc_sentences`, ``url1``, ``url2`` (B,) int32 and
+    ``sqrt_dice`` (B,) float32 from :func:`url_dice_triples`. With
+    ``shuffle_buffer`` both streams pass through :func:`shuffled`, seeded
+    ``seed + 1`` and ``seed + 2``."""
+    text_it = sparse_doc_sentences(txt2url_pattern, sentence_length,
+                                   max_sentences_per_doc, repeat=True,
+                                   seed=seed)
+    dice_it = url_dice_triples(url2url_pattern, doc_frequency, repeat=True,
+                               seed=seed)
+    if shuffle_buffer:
+        text_it = shuffled(text_it, shuffle_buffer, seed=seed + 1)
+        dice_it = shuffled(dice_it, shuffle_buffer, seed=seed + 2)
+    while True:
+        url_near = np.empty(batch_size, np.int32)
+        tokens = np.empty((batch_size, sentence_length), np.int32)
+        url1 = np.empty(batch_size, np.int32)
+        url2 = np.empty(batch_size, np.int32)
+        dice = np.empty(batch_size, np.float32)
+        for i in range(batch_size):
+            url_near[i], tokens[i] = next(text_it)
+            url1[i], url2[i], dice[i] = next(dice_it)
+        yield {"url_near_text": url_near, "tokens": tokens, "url1": url1,
+               "url2": url2, "sqrt_dice": np.sqrt(dice)}

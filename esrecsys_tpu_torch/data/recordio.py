@@ -7,8 +7,10 @@ by either package read in the other.
 Messages are the port's own (``data/protos.py``): anything with
 ``SerializeToString()`` writes, and a class with ``ParseFromString`` reads.
 
-Not ported: the reference's native base64 fast path (it comes with the
-ETL's native code) and the per-process file slices of multi-host runs.
+A file's lines are base64-decoded in one call of the native library
+(``esrecsys_tpu_torch/native``) where it builds, else line by line in
+Python; both refuse a line that is not base64. Not ported: the
+per-process file slices of multi-host runs.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import base64
 import bz2
 import glob as glob_lib
 import gzip
+import logging
 import os
 from typing import Iterable, Iterator, List, TypeVar
 
@@ -25,6 +28,7 @@ import numpy as np
 from esrecsys_tpu_torch.data.protos import DecodeError
 
 T = TypeVar("T")
+log = logging.getLogger(__name__)
 
 
 def _open_read(path: str):
@@ -62,14 +66,43 @@ def write_records(path: str, payloads: Iterable[bytes]) -> int:
     return n
 
 
+_native_decode = None
+
+
+def _native_decoder():
+    """The native line decoder, or None where the library cannot be
+    built (looked up once a process)."""
+    global _native_decode
+    if _native_decode is None:
+        try:
+            from esrecsys_tpu_torch import native
+
+            native.load()
+            _native_decode = native.decode_b64_lines
+        except (OSError, RuntimeError) as e:
+            log.info("native base64 decoder unavailable (%s); decoding "
+                     "in Python", e)
+            _native_decode = False
+    return _native_decode or None
+
+
 def read_records(path: str) -> Iterator[bytes]:
     """Yield the raw payloads of one file (decompressed whole, then split
-    into lines)."""
+    into lines; an empty line is an empty record), every line decoded in
+    one call of the native library where it builds. Either way a line
+    that is not base64 raises ``ValueError`` (``binascii.Error`` in
+    Python) before any record of the file is yielded."""
     with _open_read(path) as f:
         data = f.read()
-    for line in data.split(b"\n"):
-        if line:
-            yield base64.b64decode(line)
+    decode = _native_decoder()
+    if decode is not None:
+        payloads = decode(data)
+    else:
+        lines = data.split(b"\n")
+        if lines[-1] == b"":  # the newline that ends the last record
+            lines.pop()
+        payloads = [base64.b64decode(line, validate=True) for line in lines]
+    yield from payloads
 
 
 def read_protos(pattern: str, proto_cls, skip_corrupt: bool = False

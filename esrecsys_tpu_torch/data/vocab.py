@@ -1,29 +1,40 @@
 """Vocabularies (counterpart of ``esrecsys_tpu/data/vocab.py``): the
 token ``Vocabulary`` with its minhash out-of-vocabulary buckets, and the
-uri dictionaries (``JsonVocab``).
+uri dictionaries (``JsonVocab``), the reference's tokenizer
+(``simple_tokenize``), ``mod_hash`` and ``count_tokens``.
 
 ``Vocabulary`` keeps the reference's embedding-index layout: index 0 is
 the mask, 1..size the dictionary's tokens by frequency rank, and
 1+size .. 1+size+65535 the minhash buckets of tokens outside it. Its files
 are ``TokenStat`` records in base64 lines (``data/recordio.py``), so a
 dictionary written by either package loads in the other.
-
-Not ported yet: ``simple_tokenize``, ``mod_hash`` and ``count_tokens``
-(they come with the Wikipedia ETL).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import zlib
+from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from esrecsys_tpu_torch.data import recordio
 from esrecsys_tpu_torch.data.protos import TokenStat
 
 MINHASH_BUCKETS = 65536
 MASK_INDEX = 0
+
+# the reference tokenizer's separator class
+_TOKEN_FILTER = re.compile("[ !@#$%^&*()_+\t\n\",.:;\\\\/?><|{}'\\[\\]]")
+
+
+def simple_tokenize(text: str) -> List[str]:
+    """Split on the separator class, lowercase, drop empty tokens."""
+    return [t.lower() for t in _TOKEN_FILTER.split(text) if t]
 
 
 def minhash(token) -> int:
@@ -41,6 +52,17 @@ def minhash(token) -> int:
     for i in range(n - 4):
         h = min(h, zlib.crc32(b[i:i + 4]) & 0xFFFF)
     return h
+
+
+def mod_hash(ids, num_buckets: int):
+    """Modulo bucketing of ids into ``num_buckets`` rows, for a Python
+    int, a numpy array or a tensor (the result non-negative, as
+    ``np.mod``'s)."""
+    if isinstance(ids, (int, np.integer)):
+        return int(ids % num_buckets)
+    if isinstance(ids, torch.Tensor):
+        return torch.remainder(ids, num_buckets)
+    return np.mod(ids, num_buckets)
 
 
 @dataclass
@@ -183,3 +205,14 @@ class JsonVocab:
     def load(cls, path: str) -> "JsonVocab":
         with open(path) as f:
             return cls(json.load(f))
+
+
+def count_tokens(docs_tokens: Iterable[Sequence[str]]
+                 ) -> Tuple[Counter, Counter]:
+    """(frequency, doc_frequency) over an iterable of token lists."""
+    freq: Counter = Counter()
+    doc_freq: Counter = Counter()
+    for tokens in docs_tokens:
+        freq.update(tokens)
+        doc_freq.update(set(tokens))
+    return freq, doc_freq

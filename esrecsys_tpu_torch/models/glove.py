@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from esrecsys_tpu_torch.models.layers import TableEmbed
+from esrecsys_tpu_torch.models.layers import TableEmbed, zeros_init
 from esrecsys_tpu_torch.retrieval.mips import NEG_INF, require_full_f32
 
 
@@ -37,7 +37,7 @@ class Glove(nn.Module):
             num_embeddings, features, device=device, generator=generator,
             name="token_embedding")
         self.bias = TableEmbed(num_embeddings, 1, device=device,
-                               name="bias", zeros=True)
+                               name="bias", init=zeros_init)
 
     def forward(self, inputs: Tuple[torch.Tensor, torch.Tensor]
                 ) -> torch.Tensor:

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -13,14 +13,30 @@ from esrecsys_tpu_torch.ops import guards
 from esrecsys_tpu_torch.ops.lookup import gather_rows
 
 
+def normal_embed_init(rows: int, features: int,
+                      generator: Optional[torch.Generator],
+                      device: Optional[torch.device]) -> torch.Tensor:
+    """``normal / sqrt(features)`` drawn from ``generator``."""
+    table = torch.randn(rows, features, generator=generator, device=device,
+                        dtype=torch.float32)
+    return table / math.sqrt(features)
+
+
+def zeros_init(rows: int, features: int,
+               generator: Optional[torch.Generator],
+               device: Optional[torch.device]) -> torch.Tensor:
+    """Zeros (the reference's ``zeros_init``, GloVe's bias)."""
+    return torch.zeros(rows, features, device=device)
+
+
 class TableEmbed(nn.Module):
     """Embedding table whose parameter is named ``embedding``.
 
     Rows are padded to a multiple of ``rows_multiple`` (the reference pads
     to 128 rows at D dividing 128 so its lane-packed layouts apply); the
     padded rows are initialised like the rest and sit past the id guard.
-    Init: ``normal / sqrt(features)`` drawn from ``generator``, or zeros
-    with ``zeros=True`` (the reference's ``zeros_init``, GloVe's bias).
+    Init: ``init(rows, features, generator, device)``, by default
+    :func:`normal_embed_init`.
 
     Lookup with the guard ``off`` follows ``jnp.take``'s default mode, not
     raw indexing (which is a device-side assert on CUDA): negative ids in
@@ -35,19 +51,15 @@ class TableEmbed(nn.Module):
                  rows_multiple: int = 1,
                  device: Optional[torch.device] = None,
                  generator: Optional[torch.Generator] = None,
-                 name: str = "embed", zeros: bool = False):
+                 name: str = "embed",
+                 init: Callable = normal_embed_init):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.features = features
         self.name = name
         rows = pad_to_multiple(num_embeddings, rows_multiple)
-        if zeros:
-            init = torch.zeros(rows, features, device=device)
-        else:
-            init = torch.randn(rows, features, generator=generator,
-                               device=device, dtype=torch.float32)
-            init = init / math.sqrt(features)
-        self.embedding = nn.Parameter(init)
+        self.embedding = nn.Parameter(init(rows, features, generator,
+                                           device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         ids = guards.check_ids(ids, self.num_embeddings, self.name)

@@ -1,6 +1,7 @@
 """Optimizer state of the row-sparse train steps (counterpart of
 ``esrecsys_tpu/ops/optim.py``): both momentum carriers, LazyAdam, and
-dense Adam in optax's order.
+dense Adam and RMSprop in optax's order (the last with optax's
+staircase exponential decay).
 
 The dense carrier keeps one momentum buffer per table and decays all of it
 every step. The lazy carrier touches only the rows a step gathered: a row
@@ -230,3 +231,32 @@ def adam_update(param: torch.Tensor, grad: torch.Tensor, state: State, *,
     mu_hat = mu / float(np.float32(1.0) - np.float32(b1) ** t)
     nu_hat = nu / float(np.float32(1.0) - np.float32(b2) ** t)
     param.add_(mu_hat.div_(nu_hat.sqrt_().add_(eps)).mul_(-lr))
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float, count: int) -> float:
+    """``optax.exponential_decay(init_value, transition_steps, decay_rate,
+    staircase=True)`` at ``count``, in float32 as optax computes it:
+    ``init_value * decay_rate ** floor(count / transition_steps)``, and
+    ``init_value`` itself at count 0 (a ``decay_rate`` of 1 or a
+    non-positive ``transition_steps`` is a constant)."""
+    if transition_steps <= 0 or decay_rate == 0 or count <= 0:
+        return float(np.float32(init_value))
+    p = np.floor(np.float32(count) / np.float32(transition_steps))
+    return float(np.float32(init_value)
+                 * np.power(np.float32(decay_rate), p, dtype=np.float32))
+
+
+def rmsprop_update(param: torch.Tensor, grad: torch.Tensor, state: State,
+                   *, lr: float, decay: float = 0.9,
+                   eps: float = 1e-8) -> None:
+    """One dense ``optax.rmsprop(lr)`` step of ``param`` in place:
+    ``nu = (1 - decay) g^2 + decay nu`` (``state["nu"]``, zeros at the
+    start), then ``param += -lr * (rsqrt(nu + eps) * g)``, eps inside the
+    root. ``lr`` is the schedule's value at the step's count, read before
+    the count moves (:func:`exponential_decay`). Not
+    ``torch.optim.RMSprop``, which takes ``alpha`` 0.99 and divides by
+    ``sqrt(v) + eps``."""
+    nu = state["nu"]
+    nu.mul_(decay).add_(grad.square().mul_(1.0 - decay))
+    param.add_(torch.rsqrt(nu + eps).mul_(grad).mul_(-lr))

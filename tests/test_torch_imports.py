@@ -53,8 +53,23 @@ def test_port_has_the_slice_modules():
                 "etl/playlists.py", "tools/serving_bench.py",
                 "retrieval/ivf.py", "retrieval/pq.py",
                 "tools/retrieval_quality_study.py", "data/recordio.py",
-                "data/protos.py", "models/glove.py", "workloads/glove.py"):
+                "data/protos.py", "models/glove.py", "workloads/glove.py",
+                "native/__init__.py", "native/cooccur.cc", "native/text.cc",
+                "etl/wiki.py", "etl/dictionary.py", "etl/cooccurrence.py",
+                "etl/sparse_docs.py", "tools/codex.py",
+                "tools/dump_correlates.py", "models/txt2url.py",
+                "workloads/txt2url.py"):
         assert (PORT / rel).is_file(), rel
+
+
+@pytest.mark.parametrize("name", ["test_torch_wiki_etl.py",
+                                  "test_torch_txt2url.py"])
+def test_the_wikipedia_slice_has_its_parity_tests(name):
+    """The ETL chain's and txt2url's parity tests stand beside the
+    modules they hold against the JAX package."""
+    text = (ROOT / "tests" / name).read_text()
+    assert "import esrecsys_tpu" in text or "from esrecsys_tpu." in text
+    assert "from esrecsys_tpu_torch" in text
 
 
 @pytest.mark.parametrize("rel", SOURCES)
@@ -84,7 +99,15 @@ def test_import_leaves_jax_unloaded():
             "esrecsys_tpu_torch.data.vocab, "
             "esrecsys_tpu_torch.models.glove, "
             "esrecsys_tpu_torch.workloads.glove, "
-            "esrecsys_tpu_torch.tools.scale_table; "
+            "esrecsys_tpu_torch.tools.scale_table, "
+            "esrecsys_tpu_torch.native, esrecsys_tpu_torch.etl.wiki, "
+            "esrecsys_tpu_torch.etl.dictionary, "
+            "esrecsys_tpu_torch.etl.cooccurrence, "
+            "esrecsys_tpu_torch.etl.sparse_docs, "
+            "esrecsys_tpu_torch.tools.codex, "
+            "esrecsys_tpu_torch.tools.dump_correlates, "
+            "esrecsys_tpu_torch.models.txt2url, "
+            "esrecsys_tpu_torch.workloads.txt2url; "
             "print(sorted(m for m in sys.modules if any(m == f or "
             f"m.startswith(f + '.') for f in {FORBIDDEN!r})))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
