@@ -138,7 +138,7 @@ the result line:
                 shapes (D=64 and D=1); the dense step against its
                 plain-version twin for 5 steps;
   14. wiki    - the Wikipedia pipeline: (a) the ETL chain in the port's
-                code on a synthetic MediaWiki dump of 10,000 pages (cut
+                code on a synthetic MediaWiki dump of 5,000 pages (cut
                 from about 20,000 for the time limit; 300-600 Zipf tokens
                 over a 200,000-word lexicon, 5-30 links, redirects,
                 Template: pages): pages, token documents (native tokenizer), both
@@ -161,10 +161,32 @@ the result line:
                 ids (the pad row's pile-up) against their plain versions
                 and timed against index_select / index_add_.
 
+  15. stl     - the Shop-the-Look pipeline at the reference run's full
+                width (512 px, filters (16, 32, 64, 128), output 64, B=16
+                triplets, 5 negatives, Adam 1e-4, bf16 towers): 1,024
+                scene/product pairs (2,048 JPEGs, 400 x 300-700 px,
+                4:2:0, 4:4:4 and grayscale, quality 75-95, some restart
+                intervals) written by the port's writer; the decoder's
+                images/s on 1 and on all threads; the towers on the card
+                (float32 with TF32 off, bf16) against float64 on the CPU;
+                train() for 20 steps with one eval round, a checkpoint
+                restored bit for bit and the export; the step on the host
+                clock fed by the decoding pipeline, from batches decoded
+                in advance and from the device, with its device
+                breakdown; both indexes from the artifact; recommend for
+                100 scenes against a float64 brute force; a txt2url
+                model trained 20 steps at width 64 and exported; serve()
+                with the text and image_key encoders, fused (256 bins)
+                and exact, their HTTP answers against encoder + topk and
+                float64; the STL CLI (index, recommend) and
+                random_recommender as subprocesses, fetch_images from a
+                local http.server; fused_scan and gather_pool at the
+                phase's shapes against their plain versions.
+
 Each main-path phase (train, harness, serve, int8, modes, sublinear, tool,
 lazy, bf16's scale_table runs, glove's train() runs, wiki's chain and its
-train() runs) sets the launch counts to 0 just before it and reads them
-just after.
+train() runs, stl's corpus-to-served-answers path) sets the launch counts
+to 0 just before it and reads them just after.
 A line gives the seconds each phase took. The second-to-last line is the
 kernel table as JSON, the last line ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside a checkout of the repository, it exits
@@ -179,6 +201,7 @@ import dataclasses
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3998,10 +4021,10 @@ def phase_glove(card: str) -> dict:
 # pages of the synthetic dump, cut from about 20,000: the script must exit
 # within 1,200 s and is held to half of that, so that a host 1.3-1.6x
 # slower (seen between runs) still passes. The chain is host Python and
-# linear in pages (375-381 s at 20,000, where the whole script took 778 s
-# on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md), so 10,000 pages bring
-# the script to about 600 s
-WIKI_PAGES = 10_000
+# linear in pages (375-381 s at 20,000, 176.8 s at 10,000, 60-97 s at
+# 5,000, on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md); 5,000 pages leave
+# room for the stl phase within about 600 s
+WIKI_PAGES = 5_000
 WIKI_LEXICON = 200_000        # distinct words, drawn Zipf(1.1) by rank
 WIKI_STEPS = 5                # GloVe and txt2url steps on the chain's output
 T2U_WORDS = 500_000           # dictionary tokens: 565,537 word rows
@@ -4663,6 +4686,721 @@ def phase_wiki(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- stl
+
+# the Shop-the-Look corpus: scene/product pairs of JPEGs written by the
+# port's writer (the card's machine has no other), 400 px wide and
+# 300-700 px tall so that both the crop and the pad to 512 run
+STL_PAIRS = 1024
+STL_WIDTH = 400
+STL_HEIGHTS = (300, 701)
+STL_EVAL_STEPS = 4            # eval batches of one round (cut from 16)
+STL_TIMED_STEPS = 10          # steps timed per feed
+STL_DECODE_IMAGES = 256       # images timed through the decoder
+STL_QUERIES = 32              # image_key queries served (and 16 texts)
+STL_FUSED_BINS = 256          # 4 rows a bin over the 1,024 products
+# the towers on the card against the same weights in float64 on the CPU,
+# relative to the largest float64 output: float32 (TF32 off) sums in
+# another order, 1e-6 seen on the CPU; bf16 keeps 8 bits at each of some
+# 20 roundings in a row, 0.006-0.018 seen on the CPU at 512 px
+STL_F32_RTOL = 1e-4
+STL_BF16_RTOL = 0.05
+T2U_SERVE_WORDS = 10_000      # the served txt2url model's dictionary
+T2U_SERVE_URLS = 10_000
+STL_TEXTS = ("red sofa", "wooden table lamp", "blue rug and chair",
+             "kitchen", "a green plant by the window")
+
+
+def stl_key(i: int, role: int) -> str:
+    """A 32-hex-digit image key (the pinimg scheme's length)."""
+    return f"{i:06x}{role:02x}" + "5" * 24
+
+
+def write_stl_corpus(root: str, pairs: int = STL_PAIRS, seed: int = 0):
+    """``pairs`` scene/product pairs as JPEGs by the port's writer:
+    a pair shares a coloured low-frequency field (the product a brighter
+    crop of the scene's palette) with fine noise; 4:2:0, 4:4:4 and
+    grayscale in turn, quality 75-95, every fourth file with a restart
+    interval. Returns (pairs json path, image dir, seconds, bytes)."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from esrecsys_tpu_torch.data import jpeg
+
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    specs = []
+    for i in range(pairs):
+        palette = rng.integers(0, 256, (8, 3))
+        for role in (0, 1):
+            specs.append((stl_key(i, role), int(rng.integers(*STL_HEIGHTS)),
+                          ("4:2:0", "4:4:4", "gray")[(2 * i + role) % 3],
+                          int(rng.integers(75, 96)),
+                          (0, 4, 0, 0, 16, 0, 0, 0)[(2 * i + role) % 8],
+                          palette, int(rng.integers(1 << 30)), role))
+
+    # fine noise: a few tiles made once (numpy under the interpreter lock
+    # would serialise the writer threads), one a file
+    tiles = rng.integers(-12, 13, (8, STL_HEIGHTS[1], STL_WIDTH, 1),
+                         dtype=np.int16)
+
+    def make(spec):
+        key, h, mode, quality, restart, palette, s, role = spec
+        r = np.random.default_rng(s)
+        pal = np.minimum(palette * (1.0 + 0.2 * role), 255).astype(np.int16)
+        cells = r.integers(0, 8, (h // 32 + 2, STL_WIDTH // 32 + 2))
+        field = pal[cells].repeat(32, 0).repeat(32, 1)[:h, :STL_WIDTH]
+        px = np.clip(field + tiles[s % 8, :h], 0, 255).astype(np.uint8)
+        if mode == "gray":
+            px = px[..., 1]
+        data = jpeg.encode(px, quality, "4:2:0" if mode == "gray" else mode,
+                           restart)
+        with open(os.path.join(img_dir, key + ".jpg"), "wb") as f:
+            f.write(data)
+        return len(data)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        nbytes = sum(pool.map(make, specs))
+    seconds = time.perf_counter() - t0
+    path = os.path.join(root, "pairs.json")
+    with open(path, "w") as f:
+        for i in range(pairs):
+            f.write(json.dumps({"scene": stl_key(i, 0),
+                                "product": stl_key(i, 1)}) + "\n")
+    return path, img_dir, seconds, nbytes
+
+
+def decoder_rates(card: str, img_dir: str) -> dict:
+    """images/s of ``decode_image`` at 512 px, one thread and
+    ``os.cpu_count()`` threads, over STL_DECODE_IMAGES corpus files."""
+    from esrecsys_tpu_torch.data import images
+
+    paths = sorted(os.path.join(img_dir, f)
+                   for f in os.listdir(img_dir))[:STL_DECODE_IMAGES]
+    t0 = time.perf_counter()
+    serial = [images.decode_image(p, 512) for p in paths]
+    one = len(paths) / (time.perf_counter() - t0)
+    threads = os.cpu_count() or 1
+    with images.decode_pool() as pool:
+        images.decode_batch(pool, paths[:16], 512)  # start the threads
+        t0 = time.perf_counter()
+        batch = images.decode_batch(pool, paths, 512)
+        many = len(paths) / (time.perf_counter() - t0)
+    import numpy as np
+
+    if not np.array_equal(np.stack(serial), batch):
+        raise AssertionError("the threaded decode differs from the serial")
+    log(f"stl decoder: {one:.1f} images/s on 1 thread, {many:.1f} on "
+        f"{threads} threads (400 x 300-700 baseline JPEGs to 512 x 512 "
+        f"float32, host clock) [{card}]")
+    return {"images_per_s_1": one, "images_per_s_n": many,
+            "threads": threads}
+
+
+def towers_against_f64(card: str, cfg, batch) -> dict:
+    """The towers at full width on the card, float32 (TF32 off, cuDNN)
+    and bf16, against the same weights in float64 on the CPU: the largest
+    difference over the largest float64 output, in eval and train mode."""
+    import torch
+
+    from esrecsys_tpu_torch.models.cnn import STLModel
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    m32 = STLModel(cfg.output_size, cfg.filters, torch.float32,
+                   device="cuda", generator=g)
+    out = {}
+    for train in (False, True):
+        m16 = STLModel(cfg.output_size, cfg.filters, torch.bfloat16,
+                       device="cuda")
+        m64 = STLModel(cfg.output_size, cfg.filters, torch.float64,
+                       device="cpu")
+        m16.load_state_dict(m32.state_dict())
+        m64.load_state_dict(m32.state_dict())
+        m64.double()
+        x = torch.from_numpy(batch)
+        with torch.no_grad():
+            want = m64.scene_tower(x.double(), train)
+            a = m32.scene_tower(x.cuda(), train).double().cpu()
+            b = m16.scene_tower(x.cuda(), train).double().cpu()
+        scale = float(want.abs().max())
+        r32 = float((a - want).abs().max()) / scale
+        r16 = float((b - want).abs().max()) / scale
+        mode = "train" if train else "eval"
+        out[mode] = {"f32": r32, "bf16": r16}
+        if not (r32 <= STL_F32_RTOL and r16 <= STL_BF16_RTOL):
+            raise AssertionError(f"towers ({mode}) against float64: f32 "
+                                 f"{r32}, bf16 {r16}")
+    log(f"stl towers at {batch.shape[1]} px, filters {cfg.filters}, output "
+        f"{cfg.output_size}, B={batch.shape[0]} against float64 on the CPU "
+        f"(relative to the largest output): eval f32 {out['eval']['f32']:.3g}"
+        f" bf16 {out['eval']['bf16']:.3g}, train f32 "
+        f"{out['train']['f32']:.3g} bf16 {out['train']['bf16']:.3g} "
+        f"(bounds {STL_F32_RTOL}, {STL_BF16_RTOL}) [{card}]")
+    return out
+
+
+def stl_step_timings(card: str, cfg, train_trips, img_dir) -> dict:
+    """A fresh model's full-width step on the host clock: fed by the
+    decoding pipeline, from batches decoded in advance (host arrays,
+    copied each step), and from one batch on the device; the device's
+    busy share and largest ops of the last (profiler)."""
+    import torch
+
+    from esrecsys_tpu_torch.data import images
+    from esrecsys_tpu_torch.workloads import stl
+
+    model, state = stl.init_state(cfg, "cuda")
+    step = stl.make_train_step(model, cfg)
+    feed = images.triplet_image_dataset(train_trips, img_dir, cfg.batch_size,
+                                        cfg.image_size, seed=1)
+    host = [next(feed) for _ in range(3)]
+    for b in host:  # warm-up: cuDNN's first calls
+        step(state, stl.to_device(b, torch.device("cuda")))
+    torch.cuda.synchronize()
+
+    def timed(get):
+        t0 = time.perf_counter()
+        for i in range(STL_TIMED_STEPS):
+            step(state, get(i))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / STL_TIMED_STEPS
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    decoded = [next(feed) for _ in range(STL_TIMED_STEPS)]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / STL_TIMED_STEPS
+    fed_ms = timed(lambda i: stl.to_device(next(feed), dev))
+    ahead_ms = timed(lambda i: stl.to_device(decoded[i], dev))
+    on_dev = stl.to_device(decoded[0], dev)
+    device_ms = timed(lambda i: on_dev)
+
+    def one():
+        step(state, on_dev)
+        torch.cuda.synchronize()
+
+    wall, busy, top = device_breakdown(one, 5)
+    ops = ", ".join(f"{k[:48]} {v:.3f} ms" for k, v in top[:5])
+    busy_txt = ("not measured" if busy is None else
+                f"{busy:.2f} ms busy (idle share {1 - busy / wall:.2f})")
+    log(f"stl step ({cfg.image_size} px, B={cfg.batch_size} triplets = "
+        f"{3 * cfg.batch_size} images, bf16 towers, Adam), host clock, mean "
+        f"of {STL_TIMED_STEPS}: {fed_ms:.2f} ms fed by the decoding pipeline "
+        f"in the loop (decode alone {decode_ms:.2f} ms a batch), "
+        f"{ahead_ms:.2f} ms from batches decoded in advance (copy "
+        f"included), {device_ms:.2f} ms from a batch on the device; under "
+        f"the profiler {wall:.2f} ms a step, {busy_txt}; largest: {ops} "
+        f"[{card}]")
+    del model, state, on_dev
+    return {"fed_ms": fed_ms, "decode_ms": decode_ms, "ahead_ms": ahead_ms,
+            "device_ms": device_ms, "profiled_ms": wall, "busy_ms": busy,
+            "top": top[:5]}
+
+
+def train_serving_txt2url(card: str, root: str):
+    """A txt2url artifact for the server's text queries: full width (64,
+    LSTM), a T2U_SERVE_WORDS-token dictionary and T2U_SERVE_URLS URLs,
+    STEPS margin steps on synthetic batches, exported. Returns (artifact,
+    dictionary path)."""
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.data.vocab import VocabEntry, Vocabulary
+    from esrecsys_tpu_torch.train.export import export_model
+    from esrecsys_tpu_torch.workloads import txt2url as t2u
+
+    words = sorted({w for t in STL_TEXTS for w in t.split()})
+    words += [f"w{i:05d}" for i in range(T2U_SERVE_WORDS - len(words))]
+    vocab = Vocabulary([VocabEntry(token=w, frequency=T2U_SERVE_WORDS - i)
+                        for i, w in enumerate(words)])
+    dict_path = os.path.join(root, "tokens.dict")
+    vocab.save(dict_path)
+    cfg = t2u.Txt2UrlConfig(work_dir=os.path.join(root, "t2u"))
+    model, state = t2u.init_state(cfg, vocab.num_embeddings,
+                                  T2U_SERVE_URLS, "cuda")
+    step = t2u.make_train_step(model, cfg)
+    rng = np.random.default_rng(3)
+    B, L = cfg.batch_size, cfg.sentence_length
+    for _ in range(STEPS):
+        batch = {"url_near_text": rng.integers(0, T2U_SERVE_URLS, B),
+                 "tokens": rng.integers(0, vocab.num_embeddings, (B, L)),
+                 "url1": rng.integers(0, T2U_SERVE_URLS, B),
+                 "url2": rng.integers(0, T2U_SERVE_URLS, B),
+                 "sqrt_dice": rng.random(B)}
+        batch = {k: v.astype(np.float32 if k == "sqrt_dice" else np.int32)
+                 for k, v in batch.items()}
+        state, metrics = step(state, t2u.to_device(batch,
+                                                   torch.device("cuda")))
+    if not np.isfinite(float(metrics["loss"])):
+        raise AssertionError("the serving txt2url model's loss is not "
+                             "finite")
+    art = export_model(cfg.work_dir, "txt2url", model, step=state.step,
+                       metadata=t2u.export_metadata(
+                           cfg, vocab.num_embeddings, T2U_SERVE_URLS))
+    return art, dict_path
+
+
+def _reset_all_launches() -> None:
+    from esrecsys_tpu_torch.kernels import (fused_affinity, fused_scan,
+                                            gather_pool, scatter_add,
+                                            smem_scatter)
+
+    for counter in (fused_scan.LAUNCHES, fused_scan.LAUNCHES_INT8,
+                    fused_affinity.LAUNCHES, gather_pool.LAUNCHES,
+                    scatter_add.LAUNCHES, smem_scatter.LAUNCHES):
+        counter.reset()
+
+
+def _all_launches() -> dict:
+    from esrecsys_tpu_torch.kernels import (fused_affinity, fused_scan,
+                                            gather_pool, scatter_add,
+                                            smem_scatter)
+
+    return {"fused_scan": fused_scan.LAUNCHES.count,
+            "fused_scan_int8": fused_scan.LAUNCHES_INT8.count,
+            "fused_affinity": fused_affinity.LAUNCHES.count,
+            "gather_pool": gather_pool.LAUNCHES.count,
+            "scatter_add": scatter_add.LAUNCHES.count,
+            "smem_scatter": smem_scatter.LAUNCHES.count}
+
+
+def top10_up_to_ties(got_ids, vectors_q, product_index, what: str) -> int:
+    """Each row of ``got_ids`` (catalog ids, k of them) against a float64
+    brute force: every id scores at or above the float64 k-th score
+    (less 1e-6 of the row's scale), no id twice. Returns the rows
+    checked."""
+    import numpy as np
+
+    row = {k: i for i, k in enumerate(product_index.ids)}
+    items = product_index.vectors.astype(np.float64)
+    for q, ids in zip(vectors_q, got_ids):
+        scores = items @ np.asarray(q, np.float64)
+        k = len(ids)
+        kth = np.sort(scores)[::-1][k - 1]
+        got = scores[[row[i] for i in ids]]
+        slack = 1e-6 * max(1.0, float(np.abs(scores).max()))
+        if len(set(ids)) != k or (got < kth - slack).any():
+            raise AssertionError(f"{what}: top-{k} differs from the float64 "
+                                 f"brute force beyond ties")
+    return len(got_ids)
+
+
+def corpus_handler(directory: str):
+    """An ``http.server`` handler serving ``<directory>/<key>.jpg`` at the
+    CDN's path layout (``/400x/ab/cd/ef/<key>.jpg``)."""
+    import http.server
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def translate_path(self, path):
+            return os.path.join(directory, os.path.basename(path))
+
+        def log_message(self, *args):
+            pass
+
+    return Handler
+
+
+def stl_fetch_local(card: str, stl_json: str, img_dir: str, root: str,
+                    pairs: int = 64) -> dict:
+    """``etl/fetch_images`` over the first ``pairs`` pairs against a local
+    ``http.server`` holding the corpus (the CDN URL rewritten to it): every
+    file fetched once, byte-equal, a second run skipping them all."""
+    import http.server
+
+    from esrecsys_tpu_torch.data import images
+    from esrecsys_tpu_torch.etl import fetch_images as fi
+
+    sub = os.path.join(root, "fetch_pairs.json")
+    with open(stl_json) as f, open(sub, "w") as g:
+        for _ in range(pairs):
+            g.write(f.readline())
+    httpd = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), corpus_handler(img_dir))
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    cdn = fi.images_lib.key_to_url
+    fi.images_lib.key_to_url = lambda key: cdn(key).replace(
+        "http://i.pinimg.com", f"http://127.0.0.1:{port}")
+    out = os.path.join(root, "fetched")
+    try:
+        cfg = fi.FetchConfig(stl_json=sub, image_dir=out, sleep_every=50,
+                             sleep_seconds=0.0, max_retries=2,
+                             backoff_seconds=0.0)
+        t0 = time.perf_counter()
+        first = fi.fetch_all(cfg)
+        seconds = time.perf_counter() - t0
+        again = fi.fetch_all(cfg)
+    finally:
+        fi.images_lib.key_to_url = cdn
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    keys = fi.unique_keys(sub)
+    if first != {"ok": len(keys), "failed": 0} or again != first:
+        raise AssertionError(f"fetch_images: {first}, then {again}")
+    for key in keys:
+        with open(images.key_to_filename(key, out), "rb") as a, \
+                open(images.key_to_filename(key, img_dir), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"fetched {key} differs")
+    log(f"stl fetch_images: {len(keys)} images from a local http.server in "
+        f"{seconds:.2f} s, byte-equal, a second run skipped them all "
+        f"[{card}]")
+    return {"fetched": len(keys), "seconds": seconds}
+
+
+def stl_subprocesses(card: str, cfg, here: str, root: str, paths) -> dict:
+    """The STL CLI (``--mode index`` then ``--mode recommend``) on the
+    trained artifact in a fresh work dir, and ``random_recommender``, each
+    as a subprocess: the CLI's indexes equal the in-process ones (1e-5),
+    and so do its pages' ids."""
+    import shutil
+
+    import numpy as np
+
+    from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
+
+    wd = os.path.join(root, "cli")
+    shutil.copytree(os.path.join(cfg.work_dir, "artifacts"),
+                    os.path.join(wd, "artifacts"))
+    flags = ["--stl_json", cfg.stl_json, "--image_dir", cfg.image_dir,
+             "--work_dir", wd]
+    env = {**os.environ, "PYTHONPATH": here}
+    took = {}
+    for mode in ("index", "recommend"):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "esrecsys_tpu_torch.workloads.stl",
+             "--mode", mode, *flags], cwd=here, capture_output=True,
+            text=True, timeout=600, env=env)
+        took[mode] = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"stl CLI {mode} exit {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+    for name in ("scene", "product"):
+        a = EmbeddingIndex.load(paths[name])
+        b = EmbeddingIndex.load(os.path.join(wd, f"{name}_index.npz"))
+        if a.ids != b.ids or not np.allclose(a.vectors, b.vectors, rtol=0,
+                                             atol=1e-5):
+            raise AssertionError(f"the CLI's {name} index differs")
+    ours = sorted(os.listdir(os.path.join(cfg.work_dir, "recommendations")))
+    theirs = sorted(os.listdir(os.path.join(wd, "recommendations")))
+    row = re.compile(r"<td>([0-9a-f]+)</td>")
+    for name in ours:
+        with open(os.path.join(cfg.work_dir, "recommendations", name)) as f, \
+                open(os.path.join(wd, "recommendations", name)) as g:
+            if row.findall(f.read()) != row.findall(g.read()):
+                raise AssertionError(f"the CLI's page {name} differs")
+    if ours != theirs:
+        raise AssertionError("the CLI wrote other pages")
+    html_path = os.path.join(root, "random.html")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "esrecsys_tpu_torch.tools.random_recommender",
+         "--stl_json", cfg.stl_json, "--output_html", html_path,
+         "--num_items", "20"], cwd=here, capture_output=True, text=True,
+        timeout=300, env=env)
+    took["random_recommender"] = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"random_recommender exit {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    with open(html_path) as f:
+        rows = row.findall(f.read())
+    if len(rows) != 20:
+        raise AssertionError(f"random_recommender wrote {len(rows)} rows")
+    log(f"stl subprocesses: CLI index {took['index']:.1f} s and recommend "
+        f"{took['recommend']:.1f} s equal to the in-process run; "
+        f"random_recommender {took['random_recommender']:.1f} s, 20 rows "
+        f"[{card}]")
+    return took
+
+
+def stl_serve(card: str, cfg, paths, t2u_art: str, dict_path: str) -> dict:
+    """``serve(port=0)`` over the product index with both encoders, fused
+    (STL_FUSED_BINS bins) and exact: image_key queries (scene keys through
+    the scene tower) and text queries over HTTP, each answer equal to the
+    encoder plus the service's topk, exact's equal to a float64 brute force
+    up to ties, fused's overlap with exact at least QUALITY_FLOOR; latency
+    of each kind through each server (host clock, median of 20)."""
+    import numpy as np
+
+    from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
+    from esrecsys_tpu_torch.serving import encoders
+    from esrecsys_tpu_torch.serving.server import serve
+    from esrecsys_tpu_torch.train.export import latest_artifact
+
+    enc = {"text": encoders.txt2url_text_encoder(t2u_art, dict_path,
+                                                 device="cuda"),
+           "image_key": encoders.stl_image_encoder(
+               latest_artifact(cfg.work_dir, "stl"), cfg.image_dir,
+               device="cuda")}
+    products = EmbeddingIndex.load(paths["product"])
+    scenes = EmbeddingIndex.load(paths["scene"])
+    keys = scenes.ids[:STL_QUERIES]
+    texts = list(STL_TEXTS) * 3 + ["sofa"]
+    servers = {}
+    answers = {}
+    lat = {}
+    try:
+        for name, kw in (("fused", {"fused": True,
+                                    "fused_bins": STL_FUSED_BINS}),
+                         ("exact", {})):
+            httpd = serve(paths["product"], port=0, max_k=10, max_batch=8,
+                          encoders=enc, device="cuda", **kw)
+            thread = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            thread.start()
+            servers[name] = (httpd, thread)
+            url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/topk"
+            answers[name] = {
+                "image_key": [http_json(url, {"image_key": k, "k": 10})
+                              for k in keys],
+                "text": [http_json(url, {"text": t, "k": 10})
+                         for t in texts]}
+            svc = httpd.service
+            for kind, payloads in (("image_key", keys), ("text", texts)):
+                vecs = np.stack([enc[kind](p) for p in payloads])
+                want, _ = svc.topk(vecs, k=10)
+                got = [a["ids"] for a in answers[name][kind]]
+                if got != [list(r) for r in want]:
+                    raise AssertionError(f"{name} {kind}: HTTP answers "
+                                         f"differ from encoder + topk")
+                answers[name][kind + "_vecs"] = vecs
+            for kind, body in (("image_key", {"image_key": keys[0]}),
+                               ("text", {"text": texts[0]})):
+                lat[(name, kind)] = host_ms(
+                    lambda: http_json(url, {**body, "k": 10}), 20)
+    finally:
+        for httpd, thread in servers.values():
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+    # the scene tower on the card against the index's (bf16) embeddings
+    drift = float(np.abs(answers["exact"]["image_key_vecs"]
+                         - scenes.vectors[:STL_QUERIES]).max())
+    checked = 0
+    for kind in ("image_key", "text"):
+        checked += top10_up_to_ties(
+            [a["ids"] for a in answers["exact"][kind]],
+            answers["exact"][kind + "_vecs"], products, f"exact {kind}")
+    # fused against exact: a fused id counts where its float64 score is at
+    # or above the exact 10th, less the bf16 scan's rounding of a dot
+    # product (2^-7 |q| max|v|: two bf16 factors, float32 sums); strict
+    # counts no slack
+    items = products.vectors.astype(np.float64)
+    norm = float(np.linalg.norm(items, axis=1).max())
+    row = {k: i for i, k in enumerate(products.ids)}
+    hits = strict = total = 0
+    for kind in ("image_key", "text"):
+        for q, f, e in zip(answers["exact"][kind + "_vecs"],
+                           answers["fused"][kind], answers["exact"][kind]):
+            s = items @ q.astype(np.float64)
+            kth = min(s[row[i]] for i in e["ids"])
+            slack = 2.0 ** -7 * float(np.linalg.norm(q)) * norm
+            hits += sum(s[row[i]] >= kth - slack for i in f["ids"])
+            strict += sum(s[row[i]] >= kth for i in f["ids"])
+            total += len(e["ids"])
+    overlap, strict = hits / total, strict / total
+    if overlap < QUALITY_FLOOR:
+        raise AssertionError(f"fused overlap@10 {overlap} < {QUALITY_FLOOR}")
+    log(f"stl serving over {len(products)} products x 64: {len(keys)} "
+        f"image_key and {len(texts)} text queries over HTTP equal to encoder "
+        f"+ topk; exact equal to float64 up to ties ({checked} rows); fused "
+        f"(L={STL_FUSED_BINS}) overlap@10 with exact {overlap:.4f} within "
+        f"the bf16 scan's rounding (floor {QUALITY_FLOOR}), {strict:.4f} "
+        f"strict; the float32 scene tower against the bf16 index "
+        f"embedding {drift:.3g}; latency (HTTP, median of 20): image_key "
+        f"fused {lat[('fused', 'image_key')]:.2f} ms, exact "
+        f"{lat[('exact', 'image_key')]:.2f} ms; text fused "
+        f"{lat[('fused', 'text')]:.2f} ms, exact {lat[('exact', 'text')]:.2f}"
+        f" ms [{card}]")
+    return {"overlap": overlap, "strict_overlap": strict, "latency_ms": {f"{a}/{b}": v for (a, b), v
+                                               in lat.items()},
+            "text_vec": answers["exact"]["text_vecs"][0],
+            "image_vecs": answers["exact"]["image_key_vecs"]}
+
+
+def stl_kernels_against_plain(card: str, paths, t2u_art, dict_path,
+                              image_vecs) -> dict:
+    """The two kernels the phase launched, at its shapes, against their
+    plain versions: fused_scan over the packed product index (B=8, D=64,
+    L=STL_FUSED_BINS) and gather_pool at the text encoder's lookup (one
+    sentence of 32 ids from the served word table). Returns the largest
+    differences."""
+    import torch
+
+    from esrecsys_tpu_torch import convert
+    from esrecsys_tpu_torch.data.vocab import Vocabulary, simple_tokenize
+    from esrecsys_tpu_torch.kernels import fused_scan as fs
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.retrieval.fused import pack_catalog
+    from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
+
+    products = EmbeddingIndex.load(paths["product"])
+    items = torch.from_numpy(products.vectors).cuda()
+    packed = pack_catalog(items, STL_FUSED_BINS)
+    q = torch.from_numpy(image_vecs[:8]).cuda().to(torch.bfloat16)
+    M = len(products)
+    kv, ki = fs.fused_scan_cuda(q, packed, STL_FUSED_BINS, M)
+    pv, pi = fs.fused_scan_plain(q, packed, STL_FUSED_BINS, M)
+    scan_err, near, _ = compare_candidates(q, packed, kv, ki, pv, pi)
+    model, meta = convert.txt2url_model_from_artifact(t2u_art, "cuda")
+    vocab = Vocabulary.load(dict_path)
+    ids = vocab.embedding_indices(simple_tokenize(" ".join(STL_TEXTS)))
+    ids = (ids * 32)[:32]
+    table = model.encoder.word_embedding.embedding.detach()
+    tid = torch.tensor(ids, dtype=torch.int32, device="cuda")[:, None]
+    got = gp.gather_pool_cuda(table, tid, False, -1)
+    want = gp.gather_pool_plain(table, tid, False, -1)
+    gather_err = float((got - want).abs().max())
+    if gather_err != 0.0:
+        raise AssertionError(f"gather_pool at the encoder's ids differs by "
+                             f"{gather_err}")
+    log(f"stl kernels against their plain versions: fused_scan B=8 D=64 "
+        f"M={M} L={STL_FUSED_BINS} max abs err {scan_err:.3g} ({near} "
+        f"near-tie id swaps); gather_pool at the text encoder's 32 ids of "
+        f"the {table.shape[0]} x {table.shape[1]} word table bit-equal "
+        f"[{card}]")
+    return {"fused_scan": scan_err, "gather_pool": gather_err}
+
+
+def phase_stl(card: str) -> dict:
+    """The Shop-the-Look pipeline at the reference run's full width
+    (STLConfig's defaults: 512 px, filters (16, 32, 64, 128), output 64,
+    B=16 triplets, 5 negatives, Adam 1e-4, bf16 towers): a synthetic
+    corpus of STL_PAIRS pairs written by the port's writer; the decoder's
+    rates; the towers against float64; train() for STEPS steps with one
+    eval round, a checkpoint restored bit for bit and the export; the
+    step's timings by feed; both indexes from the artifact; recommend for
+    100 scenes against a float64 brute force; a served txt2url model and
+    serve() with both encoders, fused and exact; the CLI,
+    random_recommender and fetch_images; then the phase's kernels against
+    their plain versions. The launch counts are read around the main
+    path (corpus to served answers)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.data import images
+    from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
+    from esrecsys_tpu_torch.train.checkpoint import Checkpointer
+    from esrecsys_tpu_torch.train.export import latest_artifact
+    from esrecsys_tpu_torch.workloads import stl
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        stl_json, img_dir, write_s, nbytes = write_stl_corpus(root)
+        log(f"stl corpus: {STL_PAIRS} pairs, {2 * STL_PAIRS} JPEGs "
+            f"({nbytes / 1e6:.1f} MB) written by the port's writer in "
+            f"{write_s:.1f} s [{card}]")
+        out["decoder"] = decoder_rates(card, img_dir)
+        cfg = stl.STLConfig(stl_json=stl_json, image_dir=img_dir,
+                            work_dir=os.path.join(root, "wd"),
+                            max_steps=STEPS, log_every_steps=10,
+                            eval_every_steps=STEPS,
+                            eval_steps=STL_EVAL_STEPS,
+                            checkpoint_every_steps=10)
+        pairs = images.valid_scene_product(
+            images.load_scene_product_pairs(stl_json), img_dir)
+        train_trips, _ = stl.generate_triplets(pairs, cfg.num_negatives,
+                                               cfg.seed)
+        batch = next(images.triplet_image_dataset(
+            train_trips, img_dir, 4, cfg.image_size, shuffle=False))[0]
+        out["f64"] = towers_against_f64(card, cfg, batch)
+
+        # ---- the main path: corpus -> train -> indexes -> pages -> served
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        result = stl.train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        if result.steps_run != STEPS or not np.isfinite(
+                result.last_train_metrics["train_loss"]):
+            raise AssertionError(f"stl train: {result.steps_run} steps, "
+                                 f"{result.last_train_metrics}")
+        ev = result.last_eval_metrics
+        if set(ev) != {"eval_loss", "eval_triplet_accuracy"} or not all(
+                np.isfinite(v) for v in ev.values()):
+            raise AssertionError(f"stl eval: {ev}")
+        _, fresh = stl.init_state(dataclasses.replace(cfg, seed=5), "cuda")
+        Checkpointer(os.path.join(cfg.work_dir, "checkpoints")).restore(fresh)
+        mismatched = [n for (n, a), (_, b) in zip(
+            result.state.params.state_dict().items(),
+            fresh.params.state_dict().items()) if not torch.equal(a, b)]
+        mismatched += [f"{k}/{n}" for k in ("mu", "nu")
+                       for n, t in result.state.opt_state[k].items()
+                       if not torch.equal(t, fresh.opt_state[k][n])]
+        if mismatched or fresh.step != STEPS:
+            raise AssertionError(f"stl checkpoint restore differs: "
+                                 f"{mismatched[:5]}")
+        del fresh
+        artifact = latest_artifact(cfg.work_dir, "stl")
+        if not artifact or not artifact.endswith(f"stl-{STEPS:08d}.npz"):
+            raise AssertionError(f"stl export: {artifact}")
+        t0 = time.perf_counter()
+        paths = stl.build_catalog_indexes(cfg, device="cuda")
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pages_dir = stl.recommend(cfg, device="cuda")
+        recommend_s = time.perf_counter() - t0
+        t2u_art, dict_path = train_serving_txt2url(card, root)
+        served = stl_serve(card, cfg, paths, t2u_art, dict_path)
+        torch.cuda.synchronize()
+        out["launches"] = _all_launches()
+        log(f"stl main path launches {out['launches']} [{card}]")
+        for name in ("fused_scan", "gather_pool"):
+            if out["launches"][name] <= 0:
+                raise AssertionError(f"the stl path never launched {name}")
+
+        # ---- what came out
+        scenes = EmbeddingIndex.load(paths["scene"])
+        products = EmbeddingIndex.load(paths["product"])
+        if len(scenes) != STL_PAIRS or len(products) != STL_PAIRS or \
+                scenes.vectors.shape[1] != 64 or \
+                not np.isfinite(scenes.vectors).all() or \
+                not np.isfinite(products.vectors).all():
+            raise AssertionError("stl indexes: wrong size or not finite")
+        row = re.compile(r"<td>([0-9a-f]+)</td>")
+        pages = sorted(os.listdir(pages_dir))
+        got = []
+        for name in pages:
+            with open(os.path.join(pages_dir, name)) as f:
+                got.append(row.findall(f.read()))
+        if len(pages) != min(cfg.max_results, len(scenes)) or any(
+                len(g) != cfg.top_k for g in got):
+            raise AssertionError(f"stl pages: {len(pages)}")
+        checked = top10_up_to_ties(got, scenes.vectors[:cfg.max_results],
+                                   products, "recommend")
+        log(f"stl train: {STEPS} steps at {cfg.image_size} px, filters "
+            f"{cfg.filters}, "
+            f"output {cfg.output_size}, B={cfg.batch_size} triplets, bf16, "
+            f"in {train_s:.1f} s (first step {result.first_dispatch_s:.2f} "
+            f"s); fit's window {result.last_train_metrics} ; eval "
+            f"({STL_EVAL_STEPS} batches) {ev}; checkpoint restored bit for "
+            f"bit; exported [{card}]")
+        log(f"stl index: {2 * STL_PAIRS} images embedded in {index_s:.2f} s "
+            f"({2 * STL_PAIRS / index_s:.1f} images/s, decode included); "
+            f"recommend: {len(pages)} scenes' top-{cfg.top_k} pages in "
+            f"{recommend_s:.2f} s, equal to a float64 brute force up to ties "
+            f"({checked} rows) [{card}]")
+        out.update(train_s=train_s, index_s=index_s,
+                   recommend_s=recommend_s, serve=served,
+                   fit_window=result.last_train_metrics)
+        out["timings"] = stl_step_timings(card, cfg, train_trips, img_dir)
+        out["subprocesses"] = stl_subprocesses(card, cfg, here, root, paths)
+        out["fetch"] = stl_fetch_local(card, stl_json, img_dir, root)
+        out["errs"] = stl_kernels_against_plain(
+            card, paths, t2u_art, dict_path, served["image_vecs"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def new_path_instantiations(bf16_res: dict, glove_res: dict, g_err: float,
                             s_err: float):
     """(per kernel, per instantiation: the bf16 and glove paths' launches
@@ -4758,6 +5496,7 @@ def main() -> int:
         bf16_res = timed("bf16", phase_bf16, card)
         glove_res = timed("glove", phase_glove, card)
         wiki_res = timed("wiki", phase_wiki, card)
+        stl_res = timed("stl", phase_stl, card)
         log(f"seconds per phase: {spent}")
     except Exception:
         traceback.print_exc()
@@ -4771,7 +5510,9 @@ def main() -> int:
         "source": "esrecsys_tpu_torch/csrc/fused_scan.cu",
         "replaces": "esrecsys_tpu/retrieval/fused.py:191",
         "launches": main_res["launches"]
-        + modes_res["launches"]["fused_scan"], "max_abs_err": max_err,
+        + modes_res["launches"]["fused_scan"]
+        + stl_res["launches"]["fused_scan"],
+        "max_abs_err": max(max_err, stl_res["errs"]["fused_scan"]),
         "ms": main_res["ms"], "plain_ms": main_res["plain_ms"],
         "bound_ms": main_res["bound_ms"], "bound_by": main_res["bound_by"],
         "library_ms": None}]
@@ -4783,7 +5524,7 @@ def main() -> int:
             ("fused_affinity", "esrecsys_tpu/retrieval/fused.py:453")):
         r = train_res[name]
         # the serving phases' launches: the deploy cycles' training, the
-        # IVF builds and rescores; the bf16, glove and wiki paths
+        # IVF builds and rescores; the bf16, glove, wiki and stl paths
         served = sum(res["launches"].get(name, 0)
                      for res in (modes_res, sub_res))
         inst = new_paths.get(name, {})
@@ -4794,10 +5535,12 @@ def main() -> int:
             "replaces": replaces,
             "launches": r["launches"] + served
             + new_launches.get(name, 0)
-            + wiki_res["launch_totals"].get(name, 0),
-            "max_abs_err": r["max_abs_err"] if wiki_err is None else max(
-                r["max_abs_err"], *(e[wiki_err]
-                                    for e in wiki_res["errs"].values())),
+            + wiki_res["launch_totals"].get(name, 0)
+            + stl_res["launches"][name],
+            "max_abs_err": max(
+                r["max_abs_err"], stl_res["errs"].get(name, 0.0),
+                *((e[wiki_err] for e in wiki_res["errs"].values())
+                  if wiki_err is not None else ())),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

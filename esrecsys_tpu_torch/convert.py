@@ -11,12 +11,15 @@ module names mirror the reference's (``Glove``'s ``token_embedding`` and
 ``OptimizedLSTMCell`` does, kernels ``(in, out)`` both sides). Train
 states cross with their optimizer state: the playlist's momentum
 carriers and SGD trace, GloVe's optax Adam state or LazyAdam moments,
-txt2url's RMSprop ``nu``.
+txt2url's RMSprop ``nu``. The Shop-the-Look towers cross through their
+own functions (``stl_*``): their conv and Dense kernels are transposed
+between flax's layouts and PyTorch's, and their BatchNorm running
+statistics travel as the ``batch_stats`` tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -201,3 +204,100 @@ def txt2url_model_from_artifact(path: str, device=None):
     widths = SimpleNamespace(**{k: meta[k] for k in (
         "word_dim", "rnn_size", "url_dim", "encoder_type")})
     return txt2url_model_from_jax(params, widths, device), meta
+
+
+# ------------------------------------------------------------ Shop the Look
+
+def _stl_leaf_to_torch(path: str, arr: np.ndarray) -> np.ndarray:
+    """A flax STL parameter in PyTorch's layout: conv kernels (kh, kw, in,
+    out) -> (out, in, kh, kw), the Dense kernel (in, out) -> (out, in)."""
+    if path.endswith(".kernel"):
+        return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+    return arr
+
+
+def _stl_leaf_to_jax(path: str, arr: np.ndarray) -> np.ndarray:
+    if path.endswith(".kernel"):
+        return arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+    return arr
+
+
+def stl_state_dict_from_jax(params: Mapping[str, Any],
+                            batch_stats: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The flax ``STLModel``'s ``params`` and ``batch_stats`` trees -> a
+    state dict of ``models/cnn.STLModel`` (kernels transposed to
+    PyTorch's layouts, the running statistics as ``...BatchNorm_j.mean`` and
+    ``.var`` buffers)."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(
+        _stl_leaf_to_torch(k, v.numpy())))
+        for k, v in params_from_jax(params).items()}
+    out.update(params_from_jax(batch_stats))
+    return out
+
+
+def stl_params_to_jax(model) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(params, batch_stats) trees of numpy arrays in the flax layout, from
+    a ``models/cnn.STLModel`` (or one of its towers' parent modules)."""
+    params = {n: torch.from_numpy(np.ascontiguousarray(
+        _stl_leaf_to_jax(n, p.detach().cpu().numpy())))
+        for n, p in model.named_parameters()}
+    return params_to_jax(params), params_to_jax(dict(model.named_buffers()))
+
+
+def stl_model_from_jax(params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any], output_size: int,
+                       filters, dtype=torch.float32, device=None):
+    """A ``models/cnn.STLModel`` of ``dtype`` holding the flax params and
+    running statistics, on ``device`` (default: the card)."""
+    from esrecsys_tpu_torch.core.device import resolve_device
+    from esrecsys_tpu_torch.models.cnn import STLModel
+
+    model = STLModel(output_size, tuple(filters), dtype,
+                     device=resolve_device(device))
+    model.load_state_dict(stl_state_dict_from_jax(params, batch_stats))
+    return model
+
+
+def stl_state_from_jax(jax_state, cfg, device=None):
+    """A JAX STL ``TrainState`` (params, batch_stats and optax Adam) -> the
+    port's for the same ``STLConfig``: the model
+    (:func:`stl_model_from_jax`), ``step``, and Adam's ``mu`` and ``nu``
+    per parameter in the port's layouts. Adam's ``count`` must equal the
+    step."""
+    from esrecsys_tpu_torch.train.state import TrainState
+
+    dtype = torch.bfloat16 if cfg.use_bf16 else torch.float32
+    model = stl_model_from_jax(jax_state.params, jax_state.batch_stats,
+                               cfg.output_size, cfg.filters, dtype, device)
+    adam = _optax_adam(jax_state.opt_state)
+    if adam is None:
+        raise ValueError("the JAX state holds no optax Adam state")
+    count, mu, nu = adam
+    step = int(np.asarray(jax_state.step))
+    if int(np.asarray(count)) != step:
+        raise ValueError(f"Adam count {int(np.asarray(count))} != step "
+                         f"{step}")
+    by_name = dict(model.named_parameters())
+    opt = {}
+    for key, tree in (("mu", mu), ("nu", nu)):
+        flat = params_from_jax(tree)
+        if set(flat) != set(by_name):
+            raise ValueError(f"Adam {key} {sorted(flat)} != parameters "
+                             f"{sorted(by_name)}")
+        opt[key] = {n: torch.from_numpy(np.ascontiguousarray(
+            _stl_leaf_to_torch(n, t.numpy()))).to(by_name[n].device)
+            for n, t in flat.items()}
+    return TrainState(step=step, params=model, opt_state=opt)
+
+
+def stl_model_from_artifact(path: str, dtype=torch.float32, device=None):
+    """(model, metadata) of an ``stl`` artifact written by either package:
+    ``params/...`` and ``batch_stats/...`` in the flax layout, the widths
+    from ``__meta__`` (``output_size``, ``filters``)."""
+    from esrecsys_tpu_torch.train.export import load_model
+
+    params, batch_stats, meta = load_model(path)
+    model = stl_model_from_jax(params, batch_stats, int(meta["output_size"]),
+                               tuple(meta["filters"]), dtype, device)
+    return model, meta

@@ -1,6 +1,8 @@
-"""Host-side C++ code of the ETL, loaded with ctypes (counterpart of
+"""Host-side C++ code, loaded with ctypes: the ETL's (counterpart of
 ``esrecsys_tpu/native``; ``cooccur.cc`` and ``text.cc`` here are the
-port's own copies of the reference's sources).
+port's own copies of the reference's sources) and the image pipeline's
+baseline JPEG decoder and writer (``jpeg.cc``, the port's own: the
+reference decodes through TensorFlow).
 
 The library builds with ``g++`` at its first use in a process, into
 ``_build/libesrecsys_native-<hash>.so`` beside the package (``<hash>``
@@ -8,7 +10,8 @@ covers the sources and the flags, so an edited source never loads a
 stale library); nothing is written next to the sources. Raises
 ``RuntimeError`` where there is no ``g++`` or the build fails; callers
 that have a Python version (``etl/cooccurrence.make_accumulator``,
-``data/recordio.read_records``) use it then.
+``data/recordio.read_records``) use it then. The JPEG code has none:
+``data/jpeg.py`` raises.
 
 Exposes:
   * :class:`NativeCoocAccumulator`: the hash-map co-occurrence
@@ -37,7 +40,7 @@ import numpy as np
 log = logging.getLogger(__name__)
 
 _DIR = Path(__file__).resolve().parent
-SOURCES = (_DIR / "cooccur.cc", _DIR / "text.cc")
+SOURCES = (_DIR / "cooccur.cc", _DIR / "text.cc", _DIR / "jpeg.cc")
 BUILD_DIR = _DIR.parent / "_build"
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _LOCK = threading.Lock()
@@ -95,6 +98,19 @@ def load() -> ctypes.CDLL:
         lib.wiki_tokenize.argtypes = [ctypes.c_char_p, i64, arr_u8, i64,
                                       arr_u8, i64, arr_i64]
         lib.wiki_tokenize.restype = i64
+        arr_f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        err = ctypes.c_char_p
+        lib.jpeg_header.argtypes = [ctypes.c_char_p, i64, arr_i64, err, i64]
+        lib.jpeg_header.restype = ctypes.c_int
+        lib.jpeg_decode_rgb.argtypes = [ctypes.c_char_p, i64, arr_u8, i64,
+                                        err, i64]
+        lib.jpeg_decode_rgb.restype = ctypes.c_int
+        lib.jpeg_decode_fit.argtypes = [ctypes.c_char_p, i64, i64, arr_f32,
+                                        arr_f32, err, i64]
+        lib.jpeg_decode_fit.restype = ctypes.c_int
+        lib.jpeg_encode.argtypes = [arr_u8, i64, i64, i64, i64, i64, i64,
+                                    arr_u8, i64, err, i64]
+        lib.jpeg_encode.restype = i64
         _lib = lib
         return lib
 

@@ -6,12 +6,15 @@ Same storage formats as the reference: ``.npz`` with ``ids`` and
 the host as numpy; serving moves the matrix to the device. ``reserve``
 preallocates the host rows that serving's ``add_capacity`` holds on the
 device, and ``extend`` appends into them (``/admin/add_items``).
+:func:`build_index` embeds a keyed image stream into an index (the
+Shop-the-Look catalogs); unlike the reference's source
+(``make_embeddings.py``), no tail item is dropped.
 """
 
 from __future__ import annotations
 
 import json
-from typing import List, Optional, Sequence
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -91,3 +94,23 @@ class EmbeddingIndex:
             return cls(ids, np.asarray([d[k] for k in ids], np.float32))
         with np.load(path, allow_pickle=False) as z:
             return cls([str(x) for x in z["ids"]], z["vectors"])
+
+
+def build_index(
+    embed_fn: Callable,
+    batches: Iterable[Tuple[Sequence[str], np.ndarray, int]],
+) -> EmbeddingIndex:
+    """Run ``embed_fn`` (a tower, images -> (B, D) tensor or array) over
+    keyed batches -> :class:`EmbeddingIndex` of the valid rows.
+
+    ``batches`` yields (keys, images, valid_count) as
+    ``data/images.keyed_image_dataset`` produces them."""
+    ids: List[str] = []
+    vecs: List[np.ndarray] = []
+    for keys, images, valid in batches:
+        emb = embed_fn(images)
+        if hasattr(emb, "detach"):
+            emb = emb.detach().cpu().numpy()
+        ids.extend(keys[:valid])
+        vecs.append(np.asarray(emb)[:valid])
+    return EmbeddingIndex(ids, np.concatenate(vecs, axis=0))

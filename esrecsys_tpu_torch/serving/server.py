@@ -20,12 +20,15 @@
     preallocates N more rows in every device buffer, which ``add_items``
     fills in place.
   * ``QueryBatcher`` coalesces concurrent single queries into one call.
+  * ``encoders`` embed raw queries (``serving/encoders.py``): ``"text"``
+    through a txt2url artifact, ``"image_key"`` through an STL tower.
   * ``serve`` returns a stdlib ``ThreadingHTTPServer`` exposing:
       GET  /healthz            -> {"status": "ok", "items": N, ...}
       GET  /statsz             -> {"mode", "queries", "device_calls",
                                    "queries_per_dispatch", "reloads",
                                    "latency_ms", ...}
       POST /v1/topk            -> body {"vector": [...] | "id": "..." |
+                                   "text": "..." | "image_key": "..." |
                                    "vectors": [[...], ...], "k": 10,
                                    "exclude": [...], "filter": name}
                                -> {"ids": [...], "scores": [...]}
@@ -39,8 +42,7 @@
                                   swapped in (RetrievalHTTPServer)
 
 Not ported yet (construction raises ``NotImplementedError`` naming the
-option): the catalog-sharded modes (``n_model_shards``) and query
-encoders.
+option): the catalog-sharded modes (``n_model_shards``).
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -75,7 +77,7 @@ from esrecsys_tpu_torch.retrieval.pq import PQCodebook, pq_topk
 log = logging.getLogger(__name__)
 
 # the reference's serving options that have no port yet
-UNPORTED_OPTIONS = ("n_model_shards", "encoders")
+UNPORTED_OPTIONS = ("n_model_shards",)
 
 
 def _reject_unported(options: dict) -> None:
@@ -148,6 +150,7 @@ class RetrievalService:
                  pq_index_path: Optional[str] = None,
                  add_capacity: int = 0,
                  filters: Optional[Dict[str, Sequence[str]]] = None,
+                 encoders: Optional[Dict[str, Callable]] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  ivf_warm_from: Optional[IVFIndex] = None,
                  pq_warm_from: Optional[PQCodebook] = None,
@@ -182,6 +185,8 @@ class RetrievalService:
                 "/admin/reload")
         self.device = resolve_device(device)
         self.index = index
+        # raw-query embedders, e.g. {"text": txt2url_text_encoder(...)}
+        self.encoders = dict(encoders or {})
         self.max_k = min(max_k, len(index))
         self.max_batch = max_batch
         self.block_size = block_size
@@ -667,9 +672,12 @@ class RetrievalService:
         return ids[0], vals[0]
 
     def encode(self, kind: str, payload) -> np.ndarray:
-        """Raw-query encoders are not ported yet."""
-        raise ValueError(f"no {kind!r} encoder registered: query encoders "
-                         "are not ported yet")
+        """Run a raw query through its registered encoder; a kind with no
+        encoder raises ``ValueError`` (a 400 over HTTP)."""
+        if kind not in self.encoders:
+            raise ValueError(f"no {kind!r} encoder registered (have "
+                             f"{sorted(self.encoders)})")
+        return np.asarray(self.encoders[kind](payload), np.float32)
 
 
 class QueryBatcher:
@@ -1081,6 +1089,7 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
           quantized: bool = False, rescore_int8: bool = False,
           add_capacity: int = 0,
           filters: Optional[Dict[str, Sequence[str]]] = None,
+          encoders: Optional[Dict[str, Callable]] = None,
           admin_token: Optional[str] = None,
           device: Optional[Union[str, torch.device]] = None,
           **options) -> RetrievalHTTPServer:
@@ -1095,7 +1104,9 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
     ``recall_target``; ``quantized`` scans the catalog in int8 with a
     float32 rescore (composes with ``approx``); ``rescore_int8`` on top of
     it (or of a pq mode) keeps no float32 catalog on the device;
-    ``add_capacity`` leaves room for ``/admin/add_items``. ``options`` are
+    ``add_capacity`` leaves room for ``/admin/add_items``; ``encoders``
+    (``{"text": f, "image_key": g}``, ``serving/encoders.py``) enable raw
+    queries, and a reload keeps them. ``options`` are
     :class:`RetrievalService`'s IVF and PQ keywords (``ivf_clusters``,
     ``nprobe``, ``pq_subspaces``, ``ivf_index_path``, ...)."""
     index_path = index if isinstance(index, str) else None
@@ -1106,7 +1117,7 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
                           fused_bins=fused_bins, quantized=quantized,
                           rescore_int8=rescore_int8,
                           add_capacity=add_capacity, filters=filters,
-                          device=device, **options)
+                          encoders=encoders, device=device, **options)
     service = RetrievalService(index, **service_kwargs)
     batcher = QueryBatcher(service, max_wait_ms=max_wait_ms) if coalesce else None
     httpd = RetrievalHTTPServer((host, port), _Handler)
@@ -1203,8 +1214,27 @@ def main(argv=None):
                         "'{}' enables filters with none registered yet")
     p.add_argument("--admin_token", default="")
     p.add_argument("--device", default="cuda")
+    # query-side model inference (serving/encoders.py)
+    p.add_argument("--txt2url_artifact", default="",
+                   help="enable 'text' queries through this txt2url artifact")
+    p.add_argument("--token_dictionary", default="",
+                   help="the txt2url artifact's token dictionary")
+    p.add_argument("--stl_artifact", default="",
+                   help="enable 'image_key' queries through this STL "
+                        "artifact's scene tower")
+    p.add_argument("--image_dir", default="",
+                   help="where 'image_key' images are (<key>.jpg)")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO, force=True)
+    from esrecsys_tpu_torch.serving import encoders as encoders_lib
+
+    enc = {}
+    if args.txt2url_artifact:
+        enc["text"] = encoders_lib.txt2url_text_encoder(
+            args.txt2url_artifact, args.token_dictionary, device=args.device)
+    if args.stl_artifact:
+        enc["image_key"] = encoders_lib.stl_image_encoder(
+            args.stl_artifact, args.image_dir, device=args.device)
     filters = None
     if args.filters_json:
         text = args.filters_json
@@ -1217,7 +1247,8 @@ def main(argv=None):
           recall_target=args.recall_target, fused=args.fused,
           fused_bins=args.fused_bins, quantized=args.quantized,
           rescore_int8=args.rescore_int8, add_capacity=args.add_capacity,
-          filters=filters, ivf_clusters=args.ivf_clusters or None,
+          filters=filters, encoders=enc,
+          ivf_clusters=args.ivf_clusters or None,
           nprobe=args.nprobe, ivf_iters=args.ivf_iters,
           ivf_max_cell=args.ivf_max_cell or None,
           build_train_sample=args.build_train_sample or None,

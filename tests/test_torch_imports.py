@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ``esrecsys_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, its libraries, TensorFlow, protobuf, or
-the JAX package."""
+``chip_smoke.py``) imports JAX, its libraries, TensorFlow, protobuf, an
+image library (PIL, OpenCV, imageio, torchvision: the card's machine has
+none), or the JAX package."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "esrecsys_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "esrecsys_tpu",
-             "tensorflow", "google.protobuf")
+             "tensorflow", "google.protobuf", "PIL", "cv2", "imageio",
+             "torchvision")
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
                  for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 
@@ -58,15 +60,21 @@ def test_port_has_the_slice_modules():
                 "etl/wiki.py", "etl/dictionary.py", "etl/cooccurrence.py",
                 "etl/sparse_docs.py", "tools/codex.py",
                 "tools/dump_correlates.py", "models/txt2url.py",
-                "workloads/txt2url.py"):
+                "workloads/txt2url.py", "native/jpeg.cc", "data/jpeg.py",
+                "data/images.py", "models/cnn.py", "workloads/stl.py",
+                "retrieval/html.py", "tools/random_recommender.py",
+                "etl/fetch_images.py", "serving/encoders.py"):
         assert (PORT / rel).is_file(), rel
 
 
 @pytest.mark.parametrize("name", ["test_torch_wiki_etl.py",
-                                  "test_torch_txt2url.py"])
+                                  "test_torch_txt2url.py",
+                                  "test_torch_jpeg.py", "test_torch_stl.py",
+                                  "test_torch_encoders.py"])
 def test_the_wikipedia_slice_has_its_parity_tests(name):
-    """The ETL chain's and txt2url's parity tests stand beside the
-    modules they hold against the JAX package."""
+    """The ETL chain's, txt2url's, and the Shop-the-Look pipeline's and
+    the encoders' parity tests stand beside the modules they hold against
+    the JAX package."""
     text = (ROOT / "tests" / name).read_text()
     assert "import esrecsys_tpu" in text or "from esrecsys_tpu." in text
     assert "from esrecsys_tpu_torch" in text
@@ -107,7 +115,14 @@ def test_import_leaves_jax_unloaded():
             "esrecsys_tpu_torch.tools.codex, "
             "esrecsys_tpu_torch.tools.dump_correlates, "
             "esrecsys_tpu_torch.models.txt2url, "
-            "esrecsys_tpu_torch.workloads.txt2url; "
+            "esrecsys_tpu_torch.workloads.txt2url, "
+            "esrecsys_tpu_torch.data.jpeg, esrecsys_tpu_torch.data.images, "
+            "esrecsys_tpu_torch.models.cnn, "
+            "esrecsys_tpu_torch.workloads.stl, "
+            "esrecsys_tpu_torch.retrieval.html, "
+            "esrecsys_tpu_torch.tools.random_recommender, "
+            "esrecsys_tpu_torch.etl.fetch_images, "
+            "esrecsys_tpu_torch.serving.encoders; "
             "print(sorted(m for m in sys.modules if any(m == f or "
             f"m.startswith(f + '.') for f in {FORBIDDEN!r})))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

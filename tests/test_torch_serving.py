@@ -244,8 +244,16 @@ def test_unported_modes_raise(catalog, option, value):
     """Each reference option that selects a mode the port lacks raises
     NotImplementedError naming it; approx, add_capacity, ivf_clusters and
     pq_subspaces are ported now, and construct with the reference's mode
-    and capacity."""
+    and capacity; encoders are ported too, and run on a raw query."""
     ids, vecs, _, _ = catalog
+    if option == "encoders":
+        svc = tserver.RetrievalService(EmbeddingIndex(ids, vecs),
+                                       device="cpu", **{option: value})
+        assert svc.mode == "exact"
+        assert float(svc.encode("text", "four")) == 4.0
+        with pytest.raises(ValueError, match="no 'image_key' encoder"):
+            svc.encode("image_key", "k")
+        return
     if option in ("approx", "add_capacity", "ivf_clusters", "pq_subspaces"):
         svc = tserver.RetrievalService(EmbeddingIndex(ids, vecs),
                                        device="cpu", **{option: value})
