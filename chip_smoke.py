@@ -138,7 +138,7 @@ the result line:
                 shapes (D=64 and D=1); the dense step against its
                 plain-version twin for 5 steps;
   14. wiki    - the Wikipedia pipeline: (a) the ETL chain in the port's
-                code on a synthetic MediaWiki dump of 5,000 pages (cut
+                code on a synthetic MediaWiki dump of 2,500 pages (cut
                 from about 20,000 for the time limit; 300-600 Zipf tokens
                 over a 200,000-word lexicon, 5-30 links, redirects,
                 Template: pages): pages, token documents (native tokenizer), both
@@ -181,11 +181,38 @@ the result line:
                 float64; the STL CLI (index, recommend) and
                 random_recommender as subprocesses, fetch_images from a
                 local http.server; fused_scan and gather_pool at the
-                phase's shapes against their plain versions.
+                phase's shapes against their plain versions. Before the
+                corpus: every committed JPEG fixture of
+                tests/torch_fixtures/jpeg (progressive files of each
+                subsampling, with restart markers and with unrefined
+                scans, CMYK and YCCK files) decoded on the host and held
+                byte for byte against its stored TensorFlow decode; the
+                three corpus-sized ones (two progressive, one CMYK) then
+                replace three of the corpus's files, so train() and the
+                indexes read them; progressive against baseline decoding
+                in images/s on 1 and all threads.
+  16. mesh    - a world of one rank on NCCL (a file:// rendezvous) and the
+                playlist's sharded code on a 1x1 mesh at the flagship's
+                full width (as in train, exact eval): one step from one
+                state, whose rows (owner gathers summed over the model
+                group), row gradients, local ids and gathered updates are
+                bit-equal to the unsharded step's; 20 sharded steps
+                (through gather_pool and scatter_add) against 20
+                unsharded ones from the same init, batches and negatives,
+                within the bounds of the train phase's kernel-against-plain
+                check, beside the spread of two unsharded runs (the
+                scatter's atomics sum duplicate rows in a run-dependent
+                order); one sharded eval round (the corpus matrix
+                reduced into its shard, the sharded top-k) over all
+                2,262,292 tracks whose top-500 ids and scores equal the
+                unsharded exact eval's; host ms per step of both, and the
+                collectives' share of the sharded step's device time from
+                torch.profiler.
 
 Each main-path phase (train, harness, serve, int8, modes, sublinear, tool,
 lazy, bf16's scale_table runs, glove's train() runs, wiki's chain and its
-train() runs, stl's corpus-to-served-answers path) sets the launch counts
+train() runs, stl's corpus-to-served-answers path, mesh's sharded steps
+and eval) sets the launch counts
 to 0 just before it and reads them just after.
 A line gives the seconds each phase took. The second-to-last line is the
 kernel table as JSON, the last line ``{"ok": true, "device": {...}}``.
@@ -4022,9 +4049,9 @@ def phase_glove(card: str) -> dict:
 # within 1,200 s and is held to half of that, so that a host 1.3-1.6x
 # slower (seen between runs) still passes. The chain is host Python and
 # linear in pages (375-381 s at 20,000, 176.8 s at 10,000, 60-97 s at
-# 5,000, on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md); 5,000 pages leave
-# room for the stl phase within about 600 s
-WIKI_PAGES = 5_000
+# 5,000, on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md); 2,500 pages leave
+# room for the stl fixtures and the mesh phase within about 600 s
+WIKI_PAGES = 2_500
 WIKI_LEXICON = 200_000        # distinct words, drawn Zipf(1.1) by rank
 WIKI_STEPS = 5                # GloVe and txt2url steps on the chain's output
 T2U_WORDS = 500_000           # dictionary tokens: 565,537 word rows
@@ -4772,13 +4799,11 @@ def write_stl_corpus(root: str, pairs: int = STL_PAIRS, seed: int = 0):
     return path, img_dir, seconds, nbytes
 
 
-def decoder_rates(card: str, img_dir: str) -> dict:
+def decoder_rates(card: str, paths: list, what: str) -> dict:
     """images/s of ``decode_image`` at 512 px, one thread and
-    ``os.cpu_count()`` threads, over STL_DECODE_IMAGES corpus files."""
+    ``os.cpu_count()`` threads, over ``paths``."""
     from esrecsys_tpu_torch.data import images
 
-    paths = sorted(os.path.join(img_dir, f)
-                   for f in os.listdir(img_dir))[:STL_DECODE_IMAGES]
     t0 = time.perf_counter()
     serial = [images.decode_image(p, 512) for p in paths]
     one = len(paths) / (time.perf_counter() - t0)
@@ -4793,10 +4818,45 @@ def decoder_rates(card: str, img_dir: str) -> dict:
     if not np.array_equal(np.stack(serial), batch):
         raise AssertionError("the threaded decode differs from the serial")
     log(f"stl decoder: {one:.1f} images/s on 1 thread, {many:.1f} on "
-        f"{threads} threads (400 x 300-700 baseline JPEGs to 512 x 512 "
-        f"float32, host clock) [{card}]")
+        f"{threads} threads ({len(paths)} {what} to 512 x 512 float32, "
+        f"host clock) [{card}]")
     return {"images_per_s_1": one, "images_per_s_n": many,
             "threads": threads}
+
+
+def check_jpeg_fixtures(card: str) -> list:
+    """Decode every committed fixture of tests/torch_fixtures/jpeg on this
+    host and hold it byte for byte against its stored TensorFlow decode
+    (the corpus-sized ones against the SHA-256 of it). Returns [(name,
+    path)] of the fixtures; raises on any difference."""
+    import hashlib
+
+    import numpy as np
+
+    from esrecsys_tpu_torch.data import jpeg
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_fixtures", "jpeg")
+    names = sorted(f for f in os.listdir(root) if f.endswith(".jpg"))
+    checked = []
+    with np.load(os.path.join(root, "tf_decodes.npz")) as z:
+        for name in names:
+            with open(os.path.join(root, name), "rb") as f:
+                got = jpeg.decode(f.read())
+            key = f"sha256/{name}"
+            if key in z.files:
+                ok = str(z[key]) == hashlib.sha256(got.tobytes()).hexdigest()
+            else:
+                ok = np.array_equal(got, z[name])
+            if not ok:
+                raise AssertionError(f"JPEG fixture {name} decodes unlike TF")
+            checked.append((name, os.path.join(root, name)))
+    if len(checked) < 15:
+        raise AssertionError(f"only {len(checked)} JPEG fixtures found")
+    log(f"jpeg fixtures: {len(checked)} files (progressive 4:4:4, 4:2:2, "
+        f"4:2:0, gray, restart markers, unrefined scans; CMYK, YCCK) "
+        f"byte-equal to their stored TF decodes on this host [{card}]")
+    return checked
 
 
 def towers_against_f64(card: str, cfg, batch) -> dict:
@@ -5292,12 +5352,26 @@ def phase_stl(card: str) -> dict:
 
     here = os.path.dirname(os.path.abspath(__file__))
     out = {}
+    fixtures = check_jpeg_fixtures(card)
     with tempfile.TemporaryDirectory() as root:
         stl_json, img_dir, write_s, nbytes = write_stl_corpus(root)
         log(f"stl corpus: {STL_PAIRS} pairs, {2 * STL_PAIRS} JPEGs "
             f"({nbytes / 1e6:.1f} MB) written by the port's writer in "
             f"{write_s:.1f} s [{card}]")
-        out["decoder"] = decoder_rates(card, img_dir)
+        baseline = sorted(os.path.join(img_dir, f)
+                          for f in os.listdir(img_dir))[:STL_DECODE_IMAGES]
+        out["decoder"] = decoder_rates(card, baseline,
+                                       "400 x 300-700 baseline JPEGs")
+        prog = [p for n, p in fixtures if n.startswith("corpus_prog")]
+        out["decoder_progressive"] = decoder_rates(
+            card, (prog * STL_DECODE_IMAGES)[:STL_DECODE_IMAGES],
+            "400 x 320-500 progressive JPEGs (the two corpus fixtures)")
+        # the corpus-sized fixtures take the places of three corpus files
+        for i, (name, path) in enumerate(
+                (n, p) for n, p in fixtures if n.startswith("corpus_")):
+            with open(path, "rb") as src, open(os.path.join(
+                    img_dir, stl_key(i, i % 2) + ".jpg"), "wb") as dst:
+                dst.write(src.read())
         cfg = stl.STLConfig(stl_json=stl_json, image_dir=img_dir,
                             work_dir=os.path.join(root, "wd"),
                             max_steps=STEPS, log_every_steps=10,
@@ -5401,6 +5475,236 @@ def phase_stl(card: str) -> dict:
     return out
 
 
+def trajectory_diffs(a, b) -> dict:
+    """{tensor: (max abs diff, share of elements off by more than 1e-6)}
+    of two playlist train states' tables and momentum buffers."""
+    out = {}
+    for t in ("album", "artist"):
+        for name, x, y in (
+                (f"{t} table", getattr(a.params, f"{t}_embed").embedding,
+                 getattr(b.params, f"{t}_embed").embedding),
+                (f"{t} momentum", a.opt_state[t]["momentum"],
+                 b.opt_state[t]["momentum"])):
+            d = (x.detach() - y.detach()).abs()
+            out[name] = (float(d.max()), float((d > 1e-6).float().mean()))
+    return out
+
+
+def mesh_first_step(cfg, corpus, batch, model_u, state_u, model_s, state_s,
+                    mesh) -> bool:
+    """One step's inputs to the scatter from one state, through the
+    unsharded and the sharded code: the gathered rows, the row gradients,
+    the ids and the updates each rank applies. Raises unless each is
+    bit-equal (the scatter that follows sums duplicates with atomics, in
+    an order no run repeats)."""
+    import torch
+
+    from esrecsys_tpu_torch.ops.lookup import gather_rows
+    from esrecsys_tpu_torch.ops.optim import shard_updates
+    from esrecsys_tpu_torch.workloads import playlist as pl
+
+    for_step = pl._step_generator(torch.device("cuda", 0), cfg.seed)
+    _, na, nr = pl._negatives(cfg, corpus, for_step, 0,
+                              batch["track_context"].shape[0], None)
+    ids = pl._step_ids(cfg, batch, na, nr)
+    tables_u = (state_u.params.album_embed.embedding,
+                state_u.params.artist_embed.embedding)
+    tables_s = (state_s.params.album_embed.embedding,
+                state_s.params.artist_embed.embedding)
+    with torch.no_grad():
+        rows_u = [gather_rows(t, i) for t, i in zip(tables_u, ids)]
+        rows_s = [mesh.sum_model(pl._owner_rows(
+            t, state_s.opt_state[name], i, mesh, cfg, 0))
+            for t, i, name in zip(tables_s, ids, ("album", "artist"))]
+    for a, b in zip(rows_u, rows_s):
+        if not torch.equal(a, b):
+            raise AssertionError("sharded rows differ from unsharded rows")
+    g_u = pl._row_grads(model_u, cfg, batch, *rows_u, na, nr)
+    g_s = pl._row_grads(model_s, cfg, batch, *rows_s, na, nr)
+    for a, b in zip(g_u[:2], g_s[:2]):
+        if not torch.equal(a, b):
+            raise AssertionError("sharded row gradients differ")
+    for t, i, g in zip(tables_s, ids, g_s[:2]):
+        li, lg = shard_updates(t, i, g, mesh)
+        if not (torch.equal(li, i) and torch.equal(lg, g)):
+            raise AssertionError("the sharded updates differ")
+    return True
+
+
+MESH_STEPS = 20               # sharded steps against unsharded ones
+MESH_PROFILED = 5             # sharded steps under torch.profiler
+
+
+def phase_mesh(card: str) -> dict:
+    """The playlist's sharded code on a 1x1 mesh of one NCCL rank at the
+    flagship's full width: one step's scatter inputs bit for bit, 20
+    sharded steps against 20 unsharded ones (and two unsharded runs
+    against each other), the sharded eval against the exact one, their
+    host times, and the collectives' share of the sharded step's device
+    time. The launch counts are read around the sharded steps and the
+    sharded eval."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from esrecsys_tpu_torch.core import mesh as mesh_lib
+    from esrecsys_tpu_torch.tools import full_scale_run as fsr
+    from esrecsys_tpu_torch.workloads import playlist as pl
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    run = fsr.TrainRunConfig(out_dir="", steps=MESH_STEPS, batch_size=2048,
+                             max_next=32, eval_every=MESH_STEPS,
+                             eval_playlists=2048, eval_fused_bins=0,
+                             device="cuda")
+    cfg = fsr.flagship_cfg(run)
+    corpus = {k: torch.from_numpy(v).to(dev)
+              for k, v in fsr.synth_corpus(run).items()}
+    rng = np.random.default_rng(31)
+    batches = [pl.to_device(fsr.host_batch(rng, 2048, 5, 32, run), dev)
+               for _ in range(MESH_STEPS + MESH_PROFILED)]
+    eval_batch = pl.to_device(fsr.host_batch(rng, 2048, 5, 32, run), dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+            world_size=1, rank=0)
+        try:
+            mesh = mesh_lib.make_mesh(n_model=cfg.n_model_shards)
+            if mesh.shape != {"data": 1, "model": 1} or \
+                    mesh.model_group is None:
+                raise AssertionError(f"mesh {mesh.shape} without groups")
+            model_u, state_u = pl.init_state(cfg, dev)
+            model_s, state_s = pl.init_state(cfg, dev, mesh=mesh)
+            bad = bit_equal_states(state_u, state_s)
+            if bad:
+                raise AssertionError(f"sharded init differs: {bad}")
+            out["first_step"] = mesh_first_step(cfg, corpus, batches[0],
+                                                model_u, state_u, model_s,
+                                                state_s, mesh)
+            log(f"mesh step 1 from one state: the sharded step's rows "
+                f"(owner gathers summed over the model group), row "
+                f"gradients, local ids and the data group's gathered "
+                f"updates bit-equal to the unsharded step's [{card}]")
+            step_u = pl.make_sparse_train_step(model_u, cfg, corpus,
+                                               cfg.seed)
+            step_s = pl.make_sharded_train_step(model_s, cfg, corpus, mesh,
+                                                cfg.seed)
+
+            def steps(step, state):
+                losses = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in batches[:MESH_STEPS]:
+                    state, m = step(state, b)
+                    losses.append(m["loss"])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / MESH_STEPS
+                return torch.stack(losses), ms
+
+            loss_u, ms_u = steps(step_u, state_u)
+            # a second unsharded run: the scatter's atomics sum duplicate
+            # rows in a run-dependent order, so this spread is the floor
+            _, state_2 = pl.init_state(cfg, dev)
+            loss_2, _ = steps(pl.make_sparse_train_step(
+                state_2.params, cfg, corpus, cfg.seed), state_2)
+            _reset_all_launches()
+            loss_s, ms_s = steps(step_s, state_s)
+            torch.cuda.synchronize()
+            step_launches = _all_launches()
+            for name in ("gather_pool", "scatter_add"):
+                if step_launches[name] <= 0:
+                    raise AssertionError(f"the sharded steps never "
+                                         f"launched {name}")
+            spread = trajectory_diffs(state_u, state_2)
+            diffs = trajectory_diffs(state_u, state_s)
+            for name, (d, share) in diffs.items():
+                atol = (TRAIN_TABLE_ATOL if "table" in name
+                        else TRAIN_MOMENTUM_ATOL)
+                if d > atol or share > TRAIN_DIFF_SHARE:
+                    raise AssertionError(
+                        f"{MESH_STEPS} sharded steps against unsharded: "
+                        f"{name} max diff {d}, share over 1e-6 {share}")
+            rel = float(((loss_s - loss_u).abs() / loss_u.abs()).max())
+            if not torch.isfinite(loss_s).all() or rel > 1e-5:
+                raise AssertionError(f"sharded losses {loss_s.tolist()} "
+                                     f"against {loss_u.tolist()}")
+            exact = {k: v[0] == 0.0 for k, v in diffs.items()}
+            log(f"mesh steps: {MESH_STEPS} sharded steps on a 1x1 NCCL mesh "
+                f"at the flagship's width (B=2048, C=5, M=32, 512 shared "
+                f"negatives, dense carrier, bf16 scoring) against "
+                f"{MESH_STEPS} unsharded from one init: losses bit-equal "
+                f"{bool(torch.equal(loss_s, loss_u))} (max rel "
+                f"{rel:.2e}); max diff (share > 1e-6) "
+                + ", ".join(f"{k} {v[0]:.3g} ({v[1]:.2e})"
+                            for k, v in diffs.items())
+                + f"; bit-equal {exact}; two unsharded runs "
+                + ", ".join(f"{k} {v[0]:.3g} ({v[1]:.2e})"
+                            for k, v in spread.items())
+                + f", losses bit-equal {bool(torch.equal(loss_2, loss_u))};"
+                f" host {ms_s:.3f} ms/step sharded, {ms_u:.3f} unsharded; "
+                f"launches {step_launches} [{card}]")
+            out.update(step_ms=ms_s, unsharded_step_ms=ms_u, diffs=diffs,
+                       spread=spread)
+            del state_2
+
+            # ---- the sharded eval against the exact one
+            exact = pl.make_eval_topk(model_u, cfg, corpus)
+            aux_u = pl.make_corpus_embed_setup(model_u, cfg, corpus)(state_u)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xv, xi = exact(state_u, eval_batch, aux_u)
+            torch.cuda.synchronize()
+            exact_ms = (time.perf_counter() - t0) * 1e3
+            del aux_u
+            _reset_all_launches()
+            t0 = time.perf_counter()
+            setup = pl.make_sharded_corpus_embed_setup(model_s, cfg, corpus,
+                                                       mesh)
+            sharded = pl.make_sharded_eval_topk(model_s, cfg, corpus, mesh)
+            aux_s = setup(state_s)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sv, si = sharded(state_s, eval_batch, aux_s)
+            torch.cuda.synchronize()
+            sharded_ms = (time.perf_counter() - t1) * 1e3
+            setup_ms = (t1 - t0) * 1e3
+            eval_launches = _all_launches()
+            if not (torch.equal(si, xi) and torch.equal(sv, xv)):
+                raise AssertionError(
+                    "sharded eval top-500 differs from the exact eval: "
+                    f"{int((si != xi).sum())} ids")
+            if not torch.isfinite(sv).all():
+                raise AssertionError("sharded eval scores not finite")
+            log(f"mesh eval: sharded top-500 over {run.num_tracks} tracks "
+                f"for 2048 playlists equal to the exact eval's (ids and "
+                f"scores); {sharded_ms:.1f} ms sharded, {exact_ms:.1f} ms "
+                f"exact (host clock, corpus matrix excluded; the sharded "
+                f"setup {setup_ms:.1f} ms) [{card}]")
+            del aux_s
+            out.update(eval_ms=sharded_ms, exact_eval_ms=exact_ms)
+
+            # ---- the collectives' share of the sharded step's device time
+            it = iter(batches[MESH_STEPS:])
+            wall, busy, top = device_breakdown(
+                lambda: (step_s(state_s, next(it)),
+                         torch.cuda.synchronize()), MESH_PROFILED - 1)
+            if busy is None:
+                raise AssertionError("the profiler saw no device time")
+            coll = sum(ms for name, ms in top if "nccl" in name.lower())
+            log(f"mesh step breakdown: {wall:.3f} ms wall, {busy:.3f} ms "
+                f"device busy, collectives {coll:.4f} ms "
+                f"({coll / busy:.4f} of busy; NCCL launches no kernel for "
+                f"a group of one rank); largest "
+                f"{[(n[:60], round(v, 4)) for n, v in top[:6]]} [{card}]")
+            out.update(wall_ms=wall, busy_ms=busy, collective_ms=coll)
+            out["launches"] = {k: step_launches[k] + eval_launches[k]
+                               for k in step_launches}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def new_path_instantiations(bf16_res: dict, glove_res: dict, g_err: float,
                             s_err: float):
     """(per kernel, per instantiation: the bf16 and glove paths' launches
@@ -5497,6 +5801,7 @@ def main() -> int:
         glove_res = timed("glove", phase_glove, card)
         wiki_res = timed("wiki", phase_wiki, card)
         stl_res = timed("stl", phase_stl, card)
+        mesh_res = timed("mesh", phase_mesh, card)
         log(f"seconds per phase: {spent}")
     except Exception:
         traceback.print_exc()
@@ -5536,7 +5841,8 @@ def main() -> int:
             "launches": r["launches"] + served
             + new_launches.get(name, 0)
             + wiki_res["launch_totals"].get(name, 0)
-            + stl_res["launches"][name],
+            + stl_res["launches"][name]
+            + mesh_res["launches"][name],
             "max_abs_err": max(
                 r["max_abs_err"], stl_res["errs"].get(name, 0.0),
                 *((e[wiki_err] for e in wiki_res["errs"].values())

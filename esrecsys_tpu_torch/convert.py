@@ -11,7 +11,9 @@ module names mirror the reference's (``Glove``'s ``token_embedding`` and
 ``OptimizedLSTMCell`` does, kernels ``(in, out)`` both sides). Train
 states cross with their optimizer state: the playlist's momentum
 carriers and SGD trace, GloVe's optax Adam state or LazyAdam moments,
-txt2url's RMSprop ``nu``. The Shop-the-Look towers cross through their
+txt2url's RMSprop ``nu``; a playlist state from a JAX mesh becomes a
+rank's sharded state (:func:`sharded_state_from_jax`). The Shop-the-Look
+towers cross through their
 own functions (``stl_*``): their conv and Dense kernels are transposed
 between flax's layouts and PyTorch's, and their BatchNorm running
 statistics travel as the ``batch_stats`` tree.
@@ -142,6 +144,34 @@ def state_from_jax(jax_state, cfg, device=None):
             for name, p in model.named_parameters():
                 state.opt_state.state[p]["momentum_buffer"] = (
                     bufs[name].to(p.device).clone())
+    return state
+
+
+def sharded_state_from_jax(jax_state, cfg, mesh, device=None):
+    """A JAX playlist ``TrainState`` of the row-sparse step, from a mesh
+    of any shape (its arrays are read whole, ``np.asarray`` gathering
+    them), -> this rank's sharded port state on ``mesh``: each table's and
+    each momentum buffer's (and ``last_step``'s) rows of this rank's
+    shard, and ``step``. Both packages pad the tables to the same rows
+    (a multiple of 128 and of the model axis), so the shards line up."""
+    from esrecsys_tpu_torch.workloads.playlist import init_state
+
+    model, state = init_state(cfg, device, mesh=mesh)
+    full = params_from_jax(jax_state.params)
+
+    def mine(arr) -> torch.Tensor:
+        arr = torch.from_numpy(np.array(arr))
+        rows = mesh.row_range(arr.shape[0])
+        return arr[rows.start:rows.stop]
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(mine(full[name]))
+        if cfg.sparse_updates and cfg.momentum:
+            for table in ("album", "artist"):
+                for key, t in state.opt_state[table].items():
+                    t.copy_(mine(jax_state.opt_state[table][key]))
+    state.step = int(np.asarray(jax_state.step))
     return state
 
 

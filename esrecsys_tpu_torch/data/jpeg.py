@@ -1,4 +1,4 @@
-"""Baseline JPEG decoding and writing for the image pipeline.
+"""JPEG decoding and baseline writing for the image pipeline.
 
 The reference decodes with ``tf.io.decode_jpeg(raw, channels=3)``
 (``esrecsys_tpu/data/images.py:61-66``), which runs libjpeg-turbo with
@@ -6,16 +6,18 @@ its fast integer IDCT and fancy upsampling. The port has neither
 TensorFlow nor PIL, so it decodes in its own C++ (``native/jpeg.cc``,
 built with ``g++`` at first use; without ``g++`` every call raises
 ``RuntimeError``: a decoder in Python would take seconds an image and
-become the step). The decode equals TF's on baseline files: the same
-IDCT arithmetic, upsampling filters and color tables
+become the step). The decode equals TF's: the same
+IDCT arithmetic, upsampling filters, block smoothing and color tables
 (``tests/test_torch_jpeg.py``).
 
-Decodes Huffman-coded sequential files (SOF0, SOF1) of 8-bit samples,
-grayscale or three components, at any whole-number sampling ratio, with
-restart intervals. Progressive, lossless, hierarchical and
-arithmetic-coded files, 12-bit samples, CMYK and YCCK raise
-``ValueError`` naming the marker or the property, as do truncated and
-corrupt files.
+Decodes sequential and progressive files, Huffman- or arithmetic-coded
+(SOF0, SOF1, SOF2, SOF9, SOF10), of 8-bit samples, grayscale, three
+components, or four (CMYK and YCCK, converted to RGB as TF converts
+them), at any whole-number sampling ratio, with restart intervals;
+progressive files whose scans leave coefficients unrefined are smoothed
+as libjpeg-turbo smooths them. Lossless and hierarchical files and 12-bit
+samples (which TF refuses too) raise ``ValueError`` naming the marker or
+the property, as do truncated and corrupt files.
 
 :func:`encode` writes baseline files (Annex K tables scaled by quality as
 libjpeg scales them; 4:4:4, 4:2:0, 4:2:2, 4:4:0 or grayscale; an

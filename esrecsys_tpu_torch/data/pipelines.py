@@ -23,6 +23,7 @@ from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from esrecsys_tpu_torch.core.mesh import process_local_files
 from esrecsys_tpu_torch.data import recordio, tfrecord
 from esrecsys_tpu_torch.data.protos import CooccurrenceRow, SparseDocument
 from esrecsys_tpu_torch.data.recordio import shuffled
@@ -118,7 +119,9 @@ def playlist_batches(
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Parse playlist TFRecords into fixed-shape numpy batches.
 
-    Files are read in sorted order (records in file order); the ragged
+    Files are read in sorted order (records in file order), each rank of
+    a ``torch.distributed`` run its slice of them
+    (``core/mesh.process_local_files``); the ragged
     ``next_*`` features are cropped or padded to ``max_next`` with a
     ``next_mask``; ``repeat`` loops over the files forever; with
     ``shuffle_buffer`` the examples pass through :func:`shuffled`; with
@@ -126,7 +129,7 @@ def playlist_batches(
     batch is kept only without ``drop_remainder``), at 1 they come one by
     one without a batch axis, as the reference's pipeline gives them.
     """
-    files = _files(pattern)
+    files = process_local_files(_files(pattern))  # this rank's slice
 
     def examples():
         while True:
@@ -203,12 +206,14 @@ def packed_playlist_batches(
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Train-time iterator over :func:`pack_playlists` shards.
 
-    Per epoch: shards in random order, a fresh permutation within each
+    Each rank of a ``torch.distributed`` run reads its slice of the shards
+    (``core/mesh.process_local_files``). Per epoch: shards in random
+    order, a fresh permutation within each
     shard, fixed-shape ``batch_size`` slices (trailing partial batches are
     dropped). The draws come from ``np.random.default_rng(seed)`` in the
     reference's order, so both packages give the same batches.
     """
-    files = _files(pattern)
+    files = process_local_files(_files(pattern))  # this rank's slice
     rng = np.random.default_rng(seed)
     while True:
         order = rng.permutation(len(files)) if shuffle else np.arange(len(files))

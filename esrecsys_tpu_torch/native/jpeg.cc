@@ -1,11 +1,24 @@
-// Baseline JPEG decoder and writer for the Shop-the-Look image pipeline
+// JPEG decoder and baseline writer for the Shop-the-Look image pipeline
 // (counterpart of the reference's tf.io.decode_jpeg(raw, channels=3) at
-// TensorFlow's defaults, which run libjpeg-turbo).
+// TensorFlow's defaults, which run libjpeg-turbo 2.1).
 //
-// The decoder reads Huffman-coded sequential files (SOF0, SOF1) of 8-bit
-// samples with 1 or 3 components, any integer sampling ratio, restart
-// intervals, byte stuffing and any number of scans, and skips APPn and COM
-// segments. It reproduces libjpeg-turbo's output at TF's settings:
+// The decoder reads Huffman- and arithmetic-coded files of 8-bit samples
+// with 1, 3 or 4 components at any integer sampling ratio:
+//   * sequential (SOF0, SOF1), any number of scans;
+//   * progressive (SOF2): every scan type (DC first and refinement, AC
+//     first with end-of-band runs, AC refinement with its correction
+//     bits) into a whole-image coefficient buffer per component; a
+//     one-component scan covers the component's own block grid, an
+//     interleaved DC scan the MCUs. Where the scans leave one of the
+//     first nine AC coefficients short of bit 0, the blocks are smoothed
+//     as libjpeg-turbo 2.1's jdcoefct.c decompress_smooth_data does
+//     (estimates from the DC values of a 5 x 5 block neighbourhood);
+//   * arithmetic coding (SOF9 sequential, SOF10 progressive): jdarith.c's
+//     QM decoder (T.81 Annex D, the Qe table D.2) with the DC and AC
+//     models of F.1.4 and G.1.3, the statistics reset at every scan and
+//     restart, and the DAC conditioning parameters;
+//   * restart intervals, byte stuffing, APPn and COM segments.
+// It reproduces libjpeg-turbo's output at TF's settings:
 //   * the "fast integer" IDCT (jidctfst.c, the AA&N butterfly with 8-bit
 //     constants and PASS1_BITS 2) in the arithmetic of its SSE2 version,
 //     which x86-64 builds run: 16-bit lanes that wrap, products taken as
@@ -16,12 +29,17 @@
 //     filter, box replication otherwise, the first and last rows
 //     replicated as context;
 //   * the integer YCbCr -> RGB tables of jdcolor.c; a grayscale file comes
-//     out as three equal channels.
-// Progressive, lossless, hierarchical and arithmetic-coded files, samples
-// of other than 8 bits, and files of 2 or 4 components (CMYK, YCCK) are
-// refused with a message naming the marker or the property. A file whose
-// entropy-coded data ends early, or that holds a bad Huffman code, is
-// refused too; nothing is filled in.
+//     out as three equal channels;
+//   * four components: CMYK (an Adobe segment with transform 0, or no
+//     Adobe segment) as it is, YCCK (any other transform) through
+//     jdcolor.c's YCCK -> CMYK, then TF's own CMYK -> RGB of jpeg_mem.cc
+//     (r = c * k / 255 after an Adobe segment, which stores inverted inks,
+//     r = (255 - k) * (255 - c) / 255 without one).
+// Lossless and hierarchical files (either coding) and samples of other
+// than 8 bits, which TF's libjpeg-turbo refuses too, are refused with a
+// message naming the marker or the property, as are 2-component files. A file whose entropy-coded data ends early, or that holds a bad
+// Huffman code, is refused too (TF refuses truncated files as well);
+// nothing is filled in.
 //
 // The writer is a small baseline encoder (Annex K tables scaled by quality
 // as jcparam.c scales them, 4:4:4, 4:2:0, 4:2:2, 4:4:0 or grayscale, an
@@ -270,6 +288,121 @@ inline int extend(int v, int n) {
   return (n && v < (1 << (n - 1))) ? v - (1 << n) + 1 : v;
 }
 
+// ------------------------------------------------------ arithmetic coding
+
+// T.81 Table D.2 (libjpeg's jaricom.c): Qe, the next index after an MPS
+// and after an LPS, and whether an LPS switches the MPS sense; entry 113
+// is the fixed 0.5 estimate of the sign and refinement bits.
+const uint16_t kQe[114] = {
+    0x5a1d, 0x2586, 0x1114, 0x080b, 0x03d8, 0x01da, 0x00e5, 0x006f, 0x0036,
+    0x001a, 0x000d, 0x0006, 0x0003, 0x0001, 0x5a7f, 0x3f25, 0x2cf2, 0x207c,
+    0x17b9, 0x1182, 0x0cef, 0x09a1, 0x072f, 0x055c, 0x0406, 0x0303, 0x0240,
+    0x01b1, 0x0144, 0x00f5, 0x00b7, 0x008a, 0x0068, 0x004e, 0x003b, 0x002c,
+    0x5ae1, 0x484c, 0x3a0d, 0x2ef1, 0x261f, 0x1f33, 0x19a8, 0x1518, 0x1177,
+    0x0e74, 0x0bfb, 0x09f8, 0x0861, 0x0706, 0x05cd, 0x04de, 0x040f, 0x0363,
+    0x02d4, 0x025c, 0x01f8, 0x01a4, 0x0160, 0x0125, 0x00f6, 0x00cb, 0x00ab,
+    0x008f, 0x5b12, 0x4d04, 0x412c, 0x37d8, 0x2fe8, 0x293c, 0x2379, 0x1edf,
+    0x1aa9, 0x174e, 0x1424, 0x119c, 0x0f6b, 0x0d51, 0x0bb6, 0x0a40, 0x5832,
+    0x4d1c, 0x438e, 0x3bdd, 0x34ee, 0x2eae, 0x299a, 0x2516, 0x5570, 0x4ca9,
+    0x44d9, 0x3e22, 0x3824, 0x32b4, 0x2e17, 0x56a8, 0x4f46, 0x47e5, 0x41cf,
+    0x3c3d, 0x375e, 0x5231, 0x4c0f, 0x4639, 0x415e, 0x5627, 0x50e7, 0x4b85,
+    0x5597, 0x504f, 0x5a10, 0x5522, 0x59eb, 0x5a1d};
+const uint8_t kNextMps[114] = {
+    1,   2,   3,   4,   5,   6,   7,   8,   9,   10,  11,  12,  13,  13,  15,
+    16,  17,  18,  19,  20,  21,  22,  23,  24,  25,  26,  27,  28,  29,  30,
+    31,  32,  33,  34,  35,  9,   37,  38,  39,  40,  41,  42,  43,  44,  45,
+    46,  47,  48,  49,  50,  51,  52,  53,  54,  55,  56,  57,  58,  59,  60,
+    61,  62,  63,  32,  65,  66,  67,  68,  69,  70,  71,  72,  73,  74,  75,
+    76,  77,  78,  79,  48,  81,  82,  83,  84,  85,  86,  87,  71,  89,  90,
+    91,  92,  93,  94,  86,  96,  97,  98,  99,  100, 93,  102, 103, 104, 99,
+    106, 107, 103, 109, 107, 111, 109, 111, 113};
+const uint8_t kNextLps[114] = {
+    1,   14,  16,  18,  20,  23,  25,  28,  30,  33,  35,  9,   10,  12,  15,
+    36,  38,  39,  40,  42,  43,  45,  46,  48,  49,  51,  52,  54,  56,  57,
+    59,  60,  62,  63,  32,  33,  37,  64,  65,  67,  68,  69,  70,  72,  73,
+    74,  75,  77,  78,  79,  48,  50,  50,  51,  52,  53,  54,  55,  56,  57,
+    58,  59,  61,  61,  65,  80,  81,  82,  83,  84,  86,  87,  87,  72,  72,
+    74,  74,  75,  77,  77,  80,  88,  89,  90,  91,  92,  93,  86,  88,  95,
+    96,  97,  99,  99,  93,  95,  101, 102, 103, 104, 99,  105, 106, 107, 103,
+    105, 108, 109, 110, 111, 110, 112, 112, 113};
+const uint8_t kSwitch[114] = {
+    1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 1,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0, 1, 0};
+
+// jdarith.c's decoder of one scan's (or restart interval's) data: the C
+// and A registers of T.81 D.2, bytes with 0xFF 0x00 stuffing, zeros once a
+// marker is reached (legal in arithmetic coding: the decoder may look
+// past the last symbol).
+struct ArithReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // fetch two bytes first
+  bool at_marker = false;
+
+  ArithReader(const uint8_t* p_, const uint8_t* e_) : p(p_), end(e_) {}
+
+  int byte() {
+    if (at_marker || p >= end) {
+      if (p >= end)
+        fail("truncated JPEG: the entropy-coded data ends early");
+      return 0;
+    }
+    int d = *p++;
+    if (d != 0xFF) return d;
+    while (p < end && *p == 0xFF) ++p;
+    if (p >= end) fail("truncated JPEG: the entropy-coded data ends early");
+    if (*p == 0) {
+      ++p;
+      return 0xFF;
+    }
+    at_marker = true;
+    --p;  // p stays on the marker's 0xFF
+    return 0;
+  }
+
+  // One binary decision with the adaptive state *st (bit 7: the MPS).
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kQe[sv & 0x7F];
+    uint8_t nl = static_cast<uint8_t>((kSwitch[sv & 0x7F] << 7) |
+                                      kNextLps[sv & 0x7F]);
+    uint8_t nm = kNextMps[sv & 0x7F];
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS after all
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 // ---------------------------------------------------------------- decoder
 
 struct Component {
@@ -279,6 +412,17 @@ struct Component {
   std::vector<uint8_t> plane;
   bool scanned = false;
   int pred = 0;
+  int dc_context = 0;         // arithmetic coding: the DC conditioning
+  // progressive and arithmetic-coded files: the quantized coefficients of every block (natural
+  // order), the grid padded to whole MCUs as jdcoefct.c sizes it; the
+  // blocks of the component's own grid are wib x hib
+  std::vector<int16_t> coefs;
+  int wib = 0, hib = 0;
+  uint16_t q[64];             // its quantization table and IFAST
+  int16_t qmul[64];           // multipliers, latched at its first scan
+  bool latched = false;
+  int coef_bits[64];          // jdphuff.c: the Al each coefficient is known
+                              // to (-1: never scanned)
 };
 
 struct Decoder {
@@ -292,8 +436,16 @@ struct Decoder {
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Component comp[4];
-  bool frame = false, jfif = false, adobe = false;
+  bool frame = false, jfif = false, adobe = false, progressive = false;
+  bool arithmetic = false;
   int adobe_transform = -1;
+  int eobrun = 0;
+  // arithmetic coding: the DAC conditioning parameters (T.81 F.1.4.4) and
+  // the statistics bins of each table
+  int dc_l[4] = {0, 0, 0, 0}, dc_u[4] = {1, 1, 1, 1}, ac_k[4] = {5, 5, 5, 5};
+  uint8_t dc_stats[4][64];
+  uint8_t ac_stats[4][256];
+  uint8_t fixed_bin = 113;
   bool header_only = false;
 
   Decoder(const uint8_t* d, size_t len) : data(d), n(len) {}
@@ -349,6 +501,25 @@ struct Decoder {
     if (pos != end) fail("corrupt JPEG: bad DQT length");
   }
 
+  void parse_dac() {
+    size_t end = segment_end();
+    while (pos < end) {
+      int tc_tb = u8();
+      int cs = u8();
+      int tc = tc_tb >> 4, tb = tc_tb & 15;
+      if (tb > 3 || tc > 1) fail("corrupt JPEG: bad DAC table");
+      if (tc == 0) {
+        dc_l[tb] = cs & 15;
+        dc_u[tb] = cs >> 4;
+        if (dc_l[tb] > dc_u[tb]) fail("corrupt JPEG: bad DAC value");
+      } else {
+        if (cs < 1 || cs > 63) fail("corrupt JPEG: bad DAC value");
+        ac_k[tb] = cs;
+      }
+    }
+    if (pos != end) fail("corrupt JPEG: bad DAC length");
+  }
+
   void parse_dht() {
     size_t end = segment_end();
     while (pos < end) {
@@ -384,9 +555,7 @@ struct Decoder {
     if (height == 0)
       fail("JPEG with its height in a DNL marker is not supported");
     if (width == 0) fail("corrupt JPEG: width 0 in SOF");
-    if (ncomp == 4)
-      fail("CMYK/YCCK JPEG (4 components) is not supported");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail(std::to_string(ncomp) + "-component JPEG is not supported");
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
@@ -412,8 +581,111 @@ struct Decoder {
       c.dh = static_cast<int>((static_cast<int64_t>(height) * c.v + vmax - 1) / vmax);
       c.stride = mcux * c.h * 8;
       c.rows = mcuy * c.v * 8;
+      c.wib = (c.dw + 7) / 8;
+      c.hib = (c.dh + 7) / 8;
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      if (progressive || arithmetic)
+        c.coefs.assign(static_cast<size_t>(mcux) * c.h * mcuy * c.v * 64, 0);
     }
     frame = true;
+  }
+
+  // The component's IFAST multipliers from its quantization table, taken
+  // at its first scan (jdinput.c latch_quant_tables).
+  void latch(Component& c) {
+    if (c.latched) return;
+    if (!qt_defined[c.tq]) fail("corrupt JPEG: undefined quantization table");
+    std::memcpy(c.q, qt[c.tq], sizeof(c.q));
+    for (int k = 0; k < 64; ++k)  // DESCALE(q * aanscale, 14 - 2)
+      c.qmul[k] = wrap16((static_cast<int>(qt[c.tq][k]) * kAanScales[k] +
+                          (1 << 11)) >> 12);
+    c.latched = true;
+  }
+
+  int16_t* block_of(Component& c, int bx, int by) {
+    return c.coefs.data() +
+           (static_cast<size_t>(by) * mcux * c.h + bx) * 64;
+  }
+
+  // jdphuff.c decode_mcu_DC_first / DC_refine / AC_first / AC_refine on
+  // one block
+  void dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
+    int s = br.decode(dc[c.td]);
+    if (s > 11) fail("corrupt JPEG: bad DC difference category");
+    c.pred += extend(br.bits(s), s);
+    blk[0] = wrap16(c.pred * (1 << al));
+  }
+
+  void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (br.bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  }
+
+  void ac_first(BitReader& br, const Component& c, int16_t* blk, int ss,
+                int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huffman& ha = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(ha);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = wrap16(extend(br.bits(s), s) * (1 << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) - 1;
+        if (r) eobrun += br.bits(r);
+        break;
+      }
+    }
+  }
+
+  // A correction bit for an already nonzero coefficient: 1 raises its
+  // magnitude by 2^al (once).
+  static void refine(BitReader& br, int16_t* coef, int al) {
+    if (br.bits(1) && (*coef & (1 << al)) == 0)
+      *coef = wrap16(*coef + (*coef >= 0 ? (1 << al) : -(1 << al)));
+  }
+
+  void ac_refine(BitReader& br, const Component& c, int16_t* blk, int ss,
+                 int se, int al) {
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& ha = ac[c.ta];
+      for (; k <= se; ++k) {
+        int rs = br.decode(ha);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // a newly nonzero coefficient of magnitude 2^al
+          s = br.bits(1) ? (1 << al) : -(1 << al);
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.bits(r);
+          break;
+        }
+        // step over the nonzero coefficients (refining each) and r zero
+        // ones, to the zero coefficient that takes s
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            refine(br, coef, al);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {  // the band's rest: correction bits only
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) refine(br, coef, al);
+      }
+      --eobrun;
+    }
   }
 
   void decode_block(BitReader& br, Component& c, const int16_t* qmul,
@@ -461,10 +733,19 @@ struct Decoder {
       sc[i] = found;
     }
     int ss = u8(), se = u8(), ahl = u8();
+    int ah = ahl >> 4, al = ahl & 15;
+    if (pos != end) fail("corrupt JPEG: bad SOS length");
+    if (arithmetic) {
+      arithmetic_scan(sc, ns, ss, se, ah, al);
+      return;
+    }
+    if (progressive) {
+      progressive_scan(sc, ns, ss, se, ah, al);
+      return;
+    }
     if (ss != 0 || se != 63 || ahl != 0)
       fail("progressive scan parameters (Ss=" + std::to_string(ss) +
            ", Se=" + std::to_string(se) + ") in a sequential JPEG");
-    if (pos != end) fail("corrupt JPEG: bad SOS length");
     int16_t qmul[4][64];
     for (int i = 0; i < ns; ++i) {
       Component& c = *sc[i];
@@ -515,13 +796,450 @@ struct Decoder {
         }
       }
     }
-    // step to the marker after the scan's data
-    const uint8_t* p = br.p;
-    while (p + 1 < data + n && !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF &&
-                                 !(p[1] >= 0xD0 && p[1] <= 0xD7)))
-      ++p;
+    skip_to_marker(br.p);
+  }
+
+  // Step to the marker after a scan's data.
+  void skip_to_marker(const uint8_t* p) {
+    p = find_marker(p, false);
     if (p + 1 >= data + n) fail("truncated JPEG: no marker after the scan");
     pos = static_cast<size_t>(p - data);
+  }
+
+  // The first marker at or after p (an 0xFF followed by neither a stuffed
+  // 0x00 nor a fill 0xFF), restart markers counted only with `rst`; the
+  // end of the data when there is none.
+  const uint8_t* find_marker(const uint8_t* p, bool rst) const {
+    while (p + 1 < data + n &&
+           !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF &&
+             (rst || !(p[1] >= 0xD0 && p[1] <= 0xD7))))
+      ++p;
+    return p;
+  }
+
+  // jdphuff.c's checks of a progressive scan's parameters, the quantization
+  // tables latched and the coefficients' known bits (coef_bits) updated.
+  void start_progressive_scan(Component** sc, int ns, int ss, int se, int ah,
+                              int al) {
+    bool bad = ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad)
+      fail("corrupt JPEG: bad progressive scan (Ss=" + std::to_string(ss) +
+           ", Se=" + std::to_string(se) + ", Ah=" + std::to_string(ah) +
+           ", Al=" + std::to_string(al) + ")");
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      latch(c);
+      for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
+      c.pred = 0;
+      c.scanned = true;
+    }
+  }
+
+  // The blocks of a scan in order, each through fn(component, block): a
+  // one-component scan covers the component's own block grid, an
+  // interleaved one the MCUs. restart(n) runs before the n-th interval.
+  template <typename Block, typename Restart>
+  void for_blocks(Component** sc, int ns, Block fn, Restart restart) {
+    int64_t total = ns == 1 ? static_cast<int64_t>(sc[0]->wib) * sc[0]->hib
+                            : static_cast<int64_t>(mcux) * mcuy;
+    int rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval && m > 0 && m % restart_interval == 0) {
+        restart(rst);
+        rst = (rst + 1) & 7;
+      }
+      if (ns == 1) {
+        Component& c = *sc[0];
+        fn(c, block_of(c, static_cast<int>(m % c.wib),
+                       static_cast<int>(m / c.wib)));
+      } else {
+        int mx = static_cast<int>(m % mcux), my = static_cast<int>(m / mcux);
+        for (int i = 0; i < ns; ++i) {
+          Component& c = *sc[i];
+          for (int yy = 0; yy < c.v; ++yy)
+            for (int xx = 0; xx < c.h; ++xx)
+              fn(c, block_of(c, mx * c.h + xx, my * c.v + yy));
+        }
+      }
+    }
+  }
+
+  // --- arithmetic-coded scans (jdarith.c), sequential and progressive
+
+  // T.81 F.1.4.4.1.2: a DC difference's conditioning category.
+  void arith_dc_diff(ArithReader& r, Component& c, int& diff) {
+    uint8_t* st = dc_stats[c.td] + c.dc_context;
+    if (r.decode(st) == 0) {
+      c.dc_context = 0;
+      diff = 0;
+      return;
+    }
+    int sign = r.decode(st + 1);
+    st += 2 + sign;
+    int m = r.decode(st);
+    if (m != 0) {
+      st = dc_stats[c.td] + 20;
+      while (r.decode(st)) {
+        if ((m <<= 1) == 0x8000) fail("corrupt JPEG: bad arithmetic code");
+        st += 1;
+      }
+    }
+    if (m < ((1 << dc_l[c.td]) >> 1))
+      c.dc_context = 0;
+    else if (m > ((1 << dc_u[c.td]) >> 1))
+      c.dc_context = 12 + sign * 4;
+    else
+      c.dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (r.decode(st)) v |= m;
+    v += 1;
+    diff = sign ? -v : v;
+  }
+
+  // A nonzero AC value after its position was found (st at its bins).
+  int arith_ac_value(ArithReader& r, const Component& c, uint8_t* st, int k) {
+    int sign = r.decode(&fixed_bin);
+    st += 2;
+    int m = r.decode(st);
+    if (m != 0 && r.decode(st)) {
+      m <<= 1;
+      st = ac_stats[c.ta] + (k <= ac_k[c.ta] ? 189 : 217);
+      while (r.decode(st)) {
+        if ((m <<= 1) == 0x8000) fail("corrupt JPEG: bad arithmetic code");
+        st += 1;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (r.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  void arith_sequential(ArithReader& r, Component& c, int16_t* blk) {
+    int diff;
+    arith_dc_diff(r, c, diff);
+    c.pred = (c.pred + diff) & 0xffff;
+    blk[0] = static_cast<int16_t>(c.pred);
+    for (int k = 0; k < 63;) {
+      uint8_t* st = ac_stats[c.ta] + 3 * k;
+      if (r.decode(st)) break;  // EOB
+      for (;;) {
+        ++k;
+        if (r.decode(st + 1)) break;
+        st += 3;
+        if (k >= 63) fail("corrupt JPEG: bad arithmetic code");
+      }
+      blk[kNatural[k]] = static_cast<int16_t>(arith_ac_value(r, c, st, k));
+    }
+  }
+
+  void arith_ac_first(ArithReader& r, const Component& c, int16_t* blk,
+                      int ss, int se, int al) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[c.ta] + 3 * (k - 1);
+      if (r.decode(st)) break;  // EOB
+      while (r.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) fail("corrupt JPEG: bad arithmetic code");
+      }
+      int v = arith_ac_value(r, c, st, k);
+      blk[kNatural[k]] = static_cast<int16_t>(
+          static_cast<unsigned>(v) << al);
+    }
+  }
+
+  void arith_ac_refine(ArithReader& r, const Component& c, int16_t* blk,
+                       int ss, int se, int al) {
+    int p1 = 1 << al, m1 = -(1 << al);
+    int kex = se;  // the previous stage's end of band
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[c.ta] + 3 * (k - 1);
+      if (k > kex && r.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {  // already nonzero: a correction bit
+          if (r.decode(st + 2))
+            *coef = wrap16(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (r.decode(st + 1)) {  // newly nonzero
+          *coef = static_cast<int16_t>(r.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) fail("corrupt JPEG: bad arithmetic code");
+      }
+    }
+  }
+
+  // jdarith.c start_pass / process_restart: the scan's statistics bins
+  // zeroed, its DC predictions and contexts reset.
+  void arith_reset(Component** sc, int ns, int ss, int ah) {
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      if (!progressive || (ss == 0 && ah == 0)) {
+        std::memset(dc_stats[c.td], 0, sizeof(dc_stats[c.td]));
+        c.pred = 0;
+        c.dc_context = 0;
+      }
+      if (!progressive || ss)
+        std::memset(ac_stats[c.ta], 0, sizeof(ac_stats[c.ta]));
+    }
+  }
+
+  void arithmetic_scan(Component** sc, int ns, int ss, int se, int ah,
+                       int al) {
+    if (progressive) {
+      start_progressive_scan(sc, ns, ss, se, ah, al);
+    } else {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        fail("progressive scan parameters (Ss=" + std::to_string(ss) +
+             ", Se=" + std::to_string(se) + ") in a sequential JPEG");
+      for (int i = 0; i < ns; ++i) {
+        latch(*sc[i]);
+        sc[i]->scanned = true;
+      }
+    }
+    for (int i = 0; i < ns; ++i)
+      if (sc[i]->td > 3 || sc[i]->ta > 3)
+        fail("corrupt JPEG: bad arithmetic table number in SOS");
+    arith_reset(sc, ns, ss, ah);
+    fixed_bin = 113;
+    ArithReader r(data + pos, data + n);
+    auto restart = [&](int rst) {
+      // the interval's unread bytes, then the marker
+      BitReader br(find_marker(r.p, true), data + n);
+      br.restart(rst);
+      r = ArithReader(br.p, data + n);
+      arith_reset(sc, ns, ss, ah);
+    };
+    auto one = [&](Component& c, int16_t* blk) {
+      if (!progressive) {
+        arith_sequential(r, c, blk);
+      } else if (ss == 0 && ah == 0) {
+        int diff;
+        arith_dc_diff(r, c, diff);
+        c.pred += diff;
+        blk[0] = wrap16(c.pred * (1 << al));
+      } else if (ss == 0) {
+        if (r.decode(&fixed_bin))
+          blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+      } else if (ah == 0) {
+        arith_ac_first(r, c, blk, ss, se, al);
+      } else {
+        arith_ac_refine(r, c, blk, ss, se, al);
+      }
+    };
+    for_blocks(sc, ns, one, restart);
+    skip_to_marker(r.p);
+  }
+
+  // One scan of a progressive file (jdphuff.c): the spectral band Ss..Se
+  // of its components at successive-approximation bit al (ah: the bit
+  // the previous scan of the band stopped at, 0 for a first scan).
+  void progressive_scan(Component** sc, int ns, int ss, int se, int ah,
+                        int al) {
+    start_progressive_scan(sc, ns, ss, se, ah, al);
+    for (int i = 0; i < ns; ++i) {
+      const Component& c = *sc[i];
+      if (ss == 0 ? (ah == 0 && !dc[c.td].defined) : !ac[c.ta].defined)
+        fail("corrupt JPEG: undefined Huffman table");
+    }
+    eobrun = 0;
+    BitReader br(data + pos, data + n);
+    auto one = [&](Component& c, int16_t* blk) {
+      if (ss == 0) {
+        if (ah == 0) dc_first(br, c, blk, al);
+        else dc_refine(br, blk, al);
+      } else if (ah == 0) {
+        ac_first(br, c, blk, ss, se, al);
+      } else {
+        ac_refine(br, c, blk, ss, se, al);
+      }
+    };
+    auto restart = [&](int rst) {
+      br.restart(rst);
+      for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+      eobrun = 0;
+    };
+    for_blocks(sc, ns, one, restart);
+    skip_to_marker(br.p);
+  }
+
+  // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of every
+  // component when the scans left one of the first nine AC coefficients
+  // (zigzag 1-9) of some component short of bit 0, every component has
+  // its DC and the ten quantizers involved are nonzero.
+  bool smoothing_useful() const {
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comp[i];
+      for (int k = 0; k < 10; ++k)
+        if (c.q[kPos[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful |= c.coef_bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1): each block's
+  // missing low-frequency coefficients estimated from the DC values of
+  // its 5 x 5 neighbourhood, then the IDCT of the estimate.
+  void smooth_component(Component& c) {
+    const int* bits = c.coef_bits;  // zigzag 0-9
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc &= bits[k] == -1;
+    const int64_t q00 = c.q[0];
+    int total = mcuy, v = c.v, wib = c.wib;
+    auto estimate = [](int64_t num, int64_t qk, int al) {
+      int64_t pred;
+      if (num >= 0) {
+        pred = ((qk << 7) + num) / (qk << 8);
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = ((qk << 7) - num) / (qk << 8);
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      return static_cast<int16_t>(pred);
+    };
+    for (int r = 0; r < total; ++r) {
+      int block_rows = v;
+      if (r == total - 1) {
+        block_rows = c.hib % v;
+        if (block_rows == 0) block_rows = v;
+      }
+      for (int br = 0; br < block_rows; ++br) {
+        // the neighbouring block rows libjpeg reaches: the rows of the
+        // iMCU rows it has buffered, the edge rows repeated past them
+        int cur = r * v + br;
+        int prev = (br > 0 || r > 0) ? cur - 1 : cur;
+        int prev2 = (br > 1 || r > 1) ? cur - 2 : prev;
+        int next = (br < block_rows - 1 || r < total - 1) ? cur + 1 : cur;
+        int next2 = (br < block_rows - 2 || r + 1 < total - 1) ? cur + 2
+                                                               : next;
+        const int rows[5] = {prev2, prev, cur, next, next2};
+        auto dc_at = [&](int row, int col) {
+          return static_cast<int>(block_of(c, col, rows[row])[0]);
+        };
+        // DC[row][col] of the window, columns -2..+2 around the block
+        int DC[5][5];
+        for (int y = 0; y < 5; ++y)
+          for (int x = 0; x < 5; ++x) DC[y][x] = dc_at(y, 0);
+        int last = wib - 1;
+        for (int bn = 0; bn < wib; ++bn) {
+          if (bn == 0 && bn < last)
+            for (int y = 0; y < 5; ++y) DC[y][3] = dc_at(y, 1);
+          if (bn + 1 < last)
+            for (int y = 0; y < 5; ++y) DC[y][4] = dc_at(y, bn + 2);
+          int16_t ws[64];
+          std::memcpy(ws, block_of(c, bn, cur), sizeof(ws));
+#define D(n) static_cast<int64_t>(DC[((n) - 1) / 5][((n) - 1) % 5])
+          int al;
+          if ((al = bits[1]) != 0 && ws[1] == 0) {  // AC01
+            int64_t num = q00 * (change_dc ?
+                (-D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) -
+                 13 * D(9) + 3 * D(10) - 3 * D(11) + 38 * D(12) -
+                 38 * D(14) + 3 * D(15) - 3 * D(16) + 13 * D(17) -
+                 13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) + D(25)) :
+                (-7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15)));
+            ws[1] = estimate(num, c.q[1], al);
+          }
+          if ((al = bits[2]) != 0 && ws[8] == 0) {  // AC10
+            int64_t num = q00 * (change_dc ?
+                (-D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) +
+                 13 * D(7) + 38 * D(8) + 13 * D(9) - D(10) + D(16) -
+                 13 * D(17) - 38 * D(18) - 13 * D(19) + D(20) + D(21) +
+                 3 * D(22) + 3 * D(23) + 3 * D(24) + D(25)) :
+                (-7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23)));
+            ws[8] = estimate(num, c.q[8], al);
+          }
+          if ((al = bits[3]) != 0 && ws[16] == 0) {  // AC20
+            int64_t num = q00 * (change_dc ?
+                (D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) -
+                 14 * D(13) - 5 * D(14) + 2 * D(17) + 7 * D(18) +
+                 2 * D(19) + D(23)) :
+                (-D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23)));
+            ws[16] = estimate(num, c.q[16], al);
+          }
+          if ((al = bits[4]) != 0 && ws[9] == 0) {  // AC11
+            int64_t num = q00 * (change_dc ?
+                (-D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) +
+                 9 * D(19) + D(21) - D(25)) :
+                (D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) +
+                 D(22) - D(24) + D(4) - D(6) + 10 * D(7) - 10 * D(9)));
+            ws[9] = estimate(num, c.q[9], al);
+          }
+          if ((al = bits[5]) != 0 && ws[2] == 0) {  // AC02
+            int64_t num = q00 * (change_dc ?
+                (2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) -
+                 14 * D(13) + 7 * D(14) + D(15) + 2 * D(17) - 5 * D(18) +
+                 2 * D(19)) :
+                (-D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15)));
+            ws[2] = estimate(num, c.q[2], al);
+          }
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && ws[3] == 0)  // AC03
+              ws[3] = estimate(q00 * (D(7) - D(9) + 2 * D(12) - 2 * D(14) +
+                                      D(17) - D(19)), c.q[3], al);
+            if ((al = bits[7]) != 0 && ws[10] == 0)  // AC12
+              ws[10] = estimate(q00 * (D(7) - 3 * D(8) + D(9) - D(17) +
+                                       3 * D(18) - D(19)), c.q[10], al);
+            if ((al = bits[8]) != 0 && ws[17] == 0)  // AC21
+              ws[17] = estimate(q00 * (D(7) - D(9) - 3 * D(12) + 3 * D(14) +
+                                       D(17) - D(19)), c.q[17], al);
+            if ((al = bits[9]) != 0 && ws[24] == 0)  // AC30
+              ws[24] = estimate(q00 * (D(7) + 2 * D(8) + D(9) - D(17) -
+                                       2 * D(18) - D(19)), c.q[24], al);
+            int64_t num = q00 *
+                (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) -
+                 6 * D(6) + 6 * D(7) + 42 * D(8) + 6 * D(9) - 6 * D(10) -
+                 8 * D(11) + 42 * D(12) + 152 * D(13) + 42 * D(14) -
+                 8 * D(15) - 6 * D(16) + 6 * D(17) + 42 * D(18) +
+                 6 * D(19) - 6 * D(20) - 2 * D(21) - 6 * D(22) -
+                 8 * D(23) - 6 * D(24) - 2 * D(25));
+            ws[0] = estimate(num, c.q[0], 0);
+          }
+#undef D
+          idct_ifast(ws, c.qmul,
+                     c.plane.data() + static_cast<size_t>(cur) * 8 * c.stride +
+                         bn * 8,
+                     c.stride);
+          for (int y = 0; y < 5; ++y)
+            for (int x = 0; x < 4; ++x) DC[y][x] = DC[y][x + 1];
+        }
+      }
+    }
+  }
+
+  // After the last scan of a progressive or arithmetic-coded file: every
+  // block through the IDCT, smoothed where libjpeg smooths (progressive
+  // files only).
+  void finish_coefficients() {
+    bool smooth = progressive && smoothing_useful();
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      c.plane.assign(static_cast<size_t>(c.stride) * c.rows, 0);
+      if (smooth) {
+        smooth_component(c);
+        continue;
+      }
+      int bw = mcux * c.h, bh = mcuy * c.v;
+      for (int by = 0; by < bh; ++by)
+        for (int bx = 0; bx < bw; ++bx)
+          idct_ifast(block_of(c, bx, by), c.qmul,
+                     c.plane.data() + static_cast<size_t>(by) * 8 * c.stride +
+                         bx * 8,
+                     c.stride);
+    }
   }
 
   // Parse to the end (or, with header_only, to the frame header).
@@ -531,21 +1249,23 @@ struct Decoder {
     pos = 2;
     for (;;) {
       int m = next_marker();
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
+        progressive = m == 0xC2 || m == 0xCA;
+        arithmetic = m == 0xC9 || m == 0xCA;
         parse_sof(m);
         if (header_only) return;
-      } else if (m == 0xC2) {
-        fail("progressive JPEG (SOF2) is not supported");
       } else if (m == 0xC3) {
         fail("lossless JPEG (SOF3) is not supported");
       } else if (m >= 0xC5 && m <= 0xC7) {
         fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) +
              ") is not supported");
-      } else if ((m >= 0xC9 && m <= 0xCB) || (m >= 0xCD && m <= 0xCF)) {
-        fail("arithmetic-coded JPEG (SOF" + std::to_string(m - 0xC0) +
-             ") is not supported");
+      } else if (m == 0xCB) {
+        fail("lossless JPEG (SOF11, arithmetic-coded) is not supported");
+      } else if (m >= 0xCD && m <= 0xCF) {
+        fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) +
+             ", arithmetic-coded) is not supported");
       } else if (m == 0xCC) {
-        fail("arithmetic-coded JPEG (DAC marker) is not supported");
+        parse_dac();
       } else if (m == 0xC4) {
         parse_dht();
       } else if (m == 0xDB) {
@@ -572,6 +1292,7 @@ struct Decoder {
     if (!frame) fail("JPEG without a frame header (SOF)");
     for (int i = 0; i < ncomp; ++i)
       if (!comp[i].scanned) fail("truncated JPEG: a component has no scan");
+    if (progressive || arithmetic) finish_coefficients();
   }
 
   bool is_rgb() const {
@@ -636,6 +1357,31 @@ struct Decoder {
   // The decoded image as height x width x 3 RGB.
   void to_rgb(uint8_t* rgb) const {
     size_t npix = static_cast<size_t>(width) * height;
+    if (ncomp == 4) {
+      std::vector<uint8_t> planes[4];
+      for (int k = 0; k < 4; ++k) {
+        planes[k].resize(npix);
+        upsample(comp[k], planes[k].data());
+      }
+      if (adobe && adobe_transform != 0) {  // YCCK -> CMYK (jdcolor.c)
+        ycc_to_rgb(planes[0].data(), planes[1].data(), planes[2].data(),
+                   npix, 1, planes[0].data(), planes[1].data(),
+                   planes[2].data());
+        for (int k = 0; k < 3; ++k)
+          for (uint8_t& v : planes[k]) v = static_cast<uint8_t>(255 - v);
+      }
+      // TF's own CMYK -> RGB (jpeg_mem.cc), read off its output: an Adobe
+      // file holds inverted inks, r = c * k / 255; otherwise
+      // r = (255 - k) * (255 - c) / 255
+      const uint8_t* K = planes[3].data();
+      for (size_t i = 0; i < npix; ++i)
+        for (int k = 0; k < 3; ++k) {
+          int c = planes[k][i], kk = K[i];
+          rgb[3 * i + k] = static_cast<uint8_t>(
+              adobe ? c * kk / 255 : (255 - kk) * (255 - c) / 255);
+        }
+      return;
+    }
     if (ncomp == 1) {
       std::vector<uint8_t> g(npix);
       upsample(comp[0], g.data());
@@ -653,6 +1399,15 @@ struct Decoder {
         for (int k = 0; k < 3; ++k) rgb[3 * i + k] = planes[k][i];
       return;
     }
+    ycc_to_rgb(planes[0].data(), planes[1].data(), planes[2].data(), npix,
+               3, rgb, rgb + 1, rgb + 2);
+  }
+
+  // jdcolor.c's integer YCbCr -> RGB over npix samples, the outputs at
+  // stride `step` (the inputs may be overwritten in place at step 1).
+  static void ycc_to_rgb(const uint8_t* Y, const uint8_t* Cb,
+                         const uint8_t* Cr, size_t npix, int step,
+                         uint8_t* r_out, uint8_t* g_out, uint8_t* b_out) {
     // jdcolor.c build_ycc_rgb_table: SCALEBITS 16
     int cr_r[256], cb_b[256], cr_g[256], cb_g[256];
     const int one_half = 1 << 15;
@@ -666,14 +1421,11 @@ struct Decoder {
     auto clamp = [](int v) {
       return static_cast<uint8_t>(std::min(255, std::max(0, v)));
     };
-    const uint8_t* Y = planes[0].data();
-    const uint8_t* Cb = planes[1].data();
-    const uint8_t* Cr = planes[2].data();
     for (size_t i = 0; i < npix; ++i) {
       int y = Y[i], cb = Cb[i], cr = Cr[i];
-      rgb[3 * i] = clamp(y + cr_r[cr]);
-      rgb[3 * i + 1] = clamp(y + ((cb_g[cb] + cr_g[cr]) >> 16));
-      rgb[3 * i + 2] = clamp(y + cb_b[cb]);
+      r_out[step * i] = clamp(y + cr_r[cr]);
+      g_out[step * i] = clamp(y + ((cb_g[cb] + cr_g[cr]) >> 16));
+      b_out[step * i] = clamp(y + cb_b[cb]);
     }
   }
 };

@@ -35,15 +35,25 @@ the first occurrence of a row updates it; the others scatter zeros.
 
 The reference's 128-lane packed layouts (``lazy_adam_packed_update``,
 ``pack_rows`` and the rest) are a TPU layout trick and are not ported.
+
+On a mesh (``rows_sharded``, a ``core.mesh.Mesh``) a table is this rank's
+row-shard and its state the state of those rows. The reference's
+``rows_sharded`` only turns its packed layout off, GSPMD doing the rest;
+here it means: every data rank's ids and row gradients are gathered over
+the data axis (so each replica applies the sum of all data rows'
+updates, in one order on every replica), global ids become ids local to
+the shard, and rows another shard owns are dropped (id -1, which the row
+kernels read as a zero row and whose updates they drop).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from esrecsys_tpu_torch.core.mesh import Mesh
 from esrecsys_tpu_torch.ops.lookup import gather_rows
 from esrecsys_tpu_torch.ops.scatter import scatter_add_rows
 
@@ -107,14 +117,54 @@ def _first_occurrences(ids: torch.Tensor, row_grads: torch.Tensor
     return sids, first, g, first.to(torch.float32)[:, None]
 
 
+def shard_updates(table: torch.Tensor, ids: torch.Tensor,
+                  row_grads: torch.Tensor, rows_sharded: Optional[Mesh]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids, row gradients) to apply to ``table``: unchanged without a
+    mesh; on one, every data rank's gathered and the ids made local to
+    this rank's shard of ``table`` (-1 where another shard owns the
+    row)."""
+    if rows_sharded is None:
+        return ids, row_grads
+    ids = rows_sharded.gather_data(ids)
+    row_grads = rows_sharded.gather_data(row_grads)
+    return rows_sharded.owned(ids, table.shape[0]), row_grads
+
+
+def sgd_update(table: torch.Tensor, ids: torch.Tensor,
+               row_grads: torch.Tensor, *, lr: float,
+               rows_sharded: Optional[Mesh] = None) -> None:
+    """Row-sparse SGD without momentum: ``table[ids] -= lr * row_grads``,
+    duplicates summed, in place."""
+    ids, row_grads = shard_updates(table, ids, row_grads, rows_sharded)
+    scatter_add_rows(table, ids, -lr * row_grads)
+
+
+def dense_momentum_update(table: torch.Tensor, state: State,
+                          ids: torch.Tensor, row_grads: torch.Tensor, *,
+                          lr: float, mu: float,
+                          rows_sharded: Optional[Mesh] = None) -> None:
+    """The dense momentum carrier's step, in place: ``m *= mu``, the row
+    gradients scatter-added into ``m`` (duplicates sum, as the dense
+    gradient would), ``p -= lr * m``; optax's SGD-momentum trace."""
+    ids, row_grads = shard_updates(table, ids, row_grads, rows_sharded)
+    m = state["momentum"]
+    m.mul_(mu)
+    scatter_add_rows(m, ids, row_grads)
+    table.sub_(lr * m)
+
+
 def lazy_momentum_update(table: torch.Tensor, state: State,
                          ids: torch.Tensor, row_grads: torch.Tensor, *,
-                         lr: float, mu: float, step: int) -> None:
+                         lr: float, mu: float, step: int,
+                         rows_sharded: Optional[Mesh] = None) -> None:
     """One exact sparse SGD-momentum step on the rows ``ids`` (n,), with
     ``row_grads`` (n, D) the gradients at the settled rows; updates
     ``table`` and ``state`` in place. Duplicate ids sum their gradients
     into the first occurrence of the sorted ids, so each row's catch-up
-    and momentum update apply once; the other occurrences add zeros."""
+    and momentum update apply once; the other occurrences add zeros (so
+    do ids of -1, rows another shard owns)."""
+    ids, row_grads = shard_updates(table, ids, row_grads, rows_sharded)
     if ids.shape[0] == 0:
         return
     sids, first, g, w = _first_occurrences(ids, row_grads)

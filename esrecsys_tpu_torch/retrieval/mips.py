@@ -2,8 +2,9 @@
 ``esrecsys_tpu/retrieval/mips.py``: the exact ``topk_over_matrix``, the
 streaming ``chunked_topk`` / ``chunked_grouped_topk`` of the eval, the
 int8 scan of quantized serving, ``quantize_rows`` and
-``quantized_topk_over_matrix``, and the approx scan
-``approx_topk_over_matrix`` with its two-phase skeleton).
+``quantized_topk_over_matrix``, the approx scan
+``approx_topk_over_matrix`` with its two-phase skeleton, and the
+catalog-sharded ``sharded_scored_topk`` of the sharded eval).
 
 The reference streams the catalog with a group-max prefilter because
 ``lax.top_k`` costs about a nanosecond per element on the TPU. The port
@@ -217,6 +218,66 @@ def chunked_grouped_topk(
     cand_scores = torch.where(cand < num_items, cand_scores, NEG_INF)
     vals, sel = topk_lower_index_first(cand_scores, min(k, num_items))
     return pad_topk(vals, torch.gather(cand, -1, sel), k)
+
+
+def sharded_scored_topk(
+    query_args: Tuple[torch.Tensor, ...],
+    item_arrays: Tuple[torch.Tensor, ...],
+    score_fn: Callable[..., torch.Tensor],
+    k: int,
+    mesh,
+    block_size: int = 8192,
+    valid_items: Optional[int] = None,
+    group: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Catalog-sharded top-k with a custom block scorer (the reference's
+    ``sharded_scored_topk``).
+
+    ``item_arrays`` are this rank's row-shards (equal leading dims on every
+    shard of the data row, shard j holding rows ``[j * S, (j + 1) * S)``);
+    ``score_fn(*query_args, *item_blocks) -> (B, n)`` scores a shared block
+    of rows, and with ``group > 0`` also per-query candidate rows shaped
+    (B, n, ...) (the exact group-max prefilter of
+    :func:`chunked_grouped_topk`). Each shard takes the top-k of its rows
+    (rows at or past ``valid_items`` in global numbering score -inf),
+    the shards' (values, global ids) are all-gathered over the data row in
+    model-index order and topped again, equal scores keeping the lower
+    position: the lower shard, then the shard's own order. Returns
+    (values (B, k), global ids (B, k) int64), -inf slots with id 0.
+    ``mesh`` is the ``core.mesh.Mesh`` whose data row holds the shards."""
+    rps = item_arrays[0].shape[0]
+    base = mesh.model_index * rps
+    valid = rps * mesh.n_model if valid_items is None else valid_items
+    block = min(block_size, rps)
+    if group:
+        block = pad_to_multiple(block, group)
+    padded = pad_to_multiple(rps, block)
+    if padded != rps:
+        item_arrays = tuple(
+            torch.nn.functional.pad(a, (0, 0) * (a.dim() - 1)
+                                    + (0, padded - rps))
+            for a in item_arrays)
+
+    def score_block(start):
+        s = score_fn(*query_args, *(a[start:start + block]
+                                    for a in item_arrays))
+        local = base + start + torch.arange(s.shape[-1], device=s.device)
+        return torch.where(local < valid, s, NEG_INF)
+
+    k_local = min(k, rps)
+    if group:
+        def score_items(cand):  # (B, n) local rows
+            s = score_fn(*query_args, *(a[cand] for a in item_arrays))
+            return torch.where(base + cand < valid, s, NEG_INF)
+
+        vals, idxs = chunked_grouped_topk(score_block, score_items, rps,
+                                          k_local, group=group)
+    else:
+        vals, idxs = chunked_topk(score_block, rps, k_local)
+    vals_g = mesh.gather_model(vals, dim=-1)
+    idxs_g = mesh.gather_model(idxs + base, dim=-1)
+    top, sel = topk_lower_index_first(vals_g, min(k, vals_g.shape[-1]))
+    return pad_topk(top, torch.gather(idxs_g, -1, sel), k)
 
 
 _INV127 = 1.0 / 127.0  # rounded to float32 once, as the reference does

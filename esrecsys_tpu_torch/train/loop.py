@@ -7,9 +7,12 @@ after the first, preemption (a stop at the next step, a checkpoint, and
 ``FitResult.preempted``), the final save, ``eval_setup_fn`` once per eval
 round, eval metrics averaged over ``eval_steps`` batches, examples/s from
 ``examples_per_step``, and the ``eval_round_s`` / ``ckpt_save_s`` /
-``first_dispatch_s`` stage accounting. ``steps_per_call`` (a TPU dispatch
-trick), ``mesh`` and the packed-state hooks are not ported: asking for
-them raises.
+``first_dispatch_s`` stage accounting, and ``mesh``: each rank's batches
+(train and eval) become its data row's batch on the device, the slices of
+the row's ranks gathered (``core/mesh.Mesh.place``), as the reference's
+``place`` assembles the global batch from the processes' slices.
+``steps_per_call`` (a TPU dispatch trick) and the packed-state hooks are
+not ported: asking for them raises.
 """
 
 from __future__ import annotations
@@ -89,6 +92,7 @@ def fit(
     prefetch: int = 2,
     steps_per_call: int = 1,
     mesh: Optional[Any] = None,
+    device: Optional[torch.device] = None,
     profile_dir: Optional[str] = None,
     profile_steps: int = 20,
     preemption: Any = None,
@@ -110,6 +114,9 @@ def fit(
         steps, and once more at the end of a run that took a step (its
         ``wait()`` then makes it durable before ``fit`` returns).
       hooks: ``hook(state, step)`` every ``hook_every`` steps.
+      mesh: a ``core.mesh.Mesh``; batches are placed on ``device``
+        (default: the card) as the data row's batch before the steps see
+        them. Every rank runs ``fit`` in lockstep.
       prefetch: pull the train iterator this many batches ahead on a
         host thread (``data/prefetch.py``); off when eval reads the train
         iterator. The iterator must do host work only.
@@ -119,12 +126,17 @@ def fit(
         a managed ``train.preemption.PreemptionGuard``. Polled once a
         step: on a stop the loop saves and returns ``preempted=True``.
     """
-    asked = {"steps_per_call": steps_per_call != 1, "mesh": mesh is not None,
+    asked = {"steps_per_call": steps_per_call != 1,
              "state_pack": state_pack is not None or state_unpack is not None}
     missing = sorted(k for k, v in asked.items() if v)
     if missing:
         raise NotImplementedError(f"fit: {', '.join(missing)} not ported")
     tracker = tracker or NullTracker()
+    if mesh is not None:
+        place_on = torch.device("cuda" if device is None else device)
+        place = lambda batch: mesh.place(batch, place_on)  # noqa: E731
+    else:
+        place = lambda batch: batch  # noqa: E731
     if eval_step is not None and eval_iter_fn is None and not eval_on_train:
         raise ValueError(
             "eval_step given without eval_iter_fn: eval would run on "
@@ -160,7 +172,7 @@ def fit(
             if profile_dir and steps_run == 1 and prof is None:
                 # after the first step, so the trace is steady state
                 prof = start_trace(profile_dir, cuda=_on_cuda(state))
-            batch = next(feed)
+            batch = place(next(feed))
             t_call = time.perf_counter() if steps_run == 0 else None
             state, metrics = train_step(state, batch)
             if t_call is not None:
@@ -191,7 +203,7 @@ def fit(
                 aux = (eval_setup_fn(state),) if eval_setup_fn is not None else ()
                 acc: Dict[str, list] = {}
                 for _ in range(eval_steps):
-                    em = eval_step(state, next(it), *aux)
+                    em = eval_step(state, place(next(it)), *aux)
                     for k, v in em.items():
                         acc.setdefault(k, []).append(float(v))
                 last_eval = {f"eval_{k}": float(np.mean(v))

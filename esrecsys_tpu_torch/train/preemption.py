@@ -9,10 +9,9 @@ A SIGTERM (a maintenance event, a spot reclaim) becomes a clean stop:
     workloads skip the final export and exit 0, and the relaunched job
     resumes from the checkpoint.
 
-``should_stop`` is this process's flag. The reference agrees the flag
-across processes so that every host saves the same step; that waits for
-the port's multi-process training, and meanwhile a guard polled inside a
-``torch.distributed`` group of more than one process raises.
+Under ``torch.distributed`` with more than one rank, ``should_stop`` is
+agreed across the ranks (an all-reduce MAX of the flags), so a signal to
+any rank stops every rank at the same step and each saves that step.
 
 Use via ``fit(..., preemption=True)`` or an explicitly managed guard::
 
@@ -26,6 +25,11 @@ import logging
 import signal
 import threading
 from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from esrecsys_tpu_torch.core.mesh import collective_device, process_count
 
 log = logging.getLogger(__name__)
 
@@ -74,15 +78,18 @@ class PreemptionGuard:
         return self._flag.is_set()
 
     def should_stop(self) -> bool:
-        """True once this process was signalled or asked to stop."""
-        import torch.distributed as dist
+        """True once any rank was signalled or asked to stop.
 
-        if (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
-            raise NotImplementedError(
-                "PreemptionGuard: agreeing the stop across processes is not "
-                "ported yet (ROADMAP queue 1 item 8, multi-device)")
-        return self._flag.is_set()
+        Under several ranks: one scalar all-reduce a call, so every rank
+        must call it at the same point of the loop, like any collective
+        (``fit`` polls it once a step)."""
+        local = self._flag.is_set()
+        if process_count() == 1:
+            return local
+        flag = torch.tensor([int(local)], dtype=torch.int32,
+                            device=collective_device())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
 
 def log_if_preempted(result, logger) -> bool:

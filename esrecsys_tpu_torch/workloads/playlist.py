@@ -15,9 +15,17 @@ to those rows, and scatter-adds the row gradients through the scatter-add
 kernel; the fused eval scans the corpus through the playlist-affinity
 kernel.
 
+On a mesh (``core/mesh.py``; ``train()`` under ``torch.distributed`` or
+with ``n_model_shards > 1``): ``init_state`` keeps each rank's row-shard
+of both tables, ``make_sharded_train_step`` gathers rows owner-computes
+and sums over the data row's ranks, each carrier updates the rank's shard
+with every data row's gradients, the eval is catalog-sharded
+(``make_sharded_eval_step``; it refuses ``eval_fused_bins``, as the
+reference does), each rank reads its slice of the files and checkpoints
+its shards, and rank 0 exports the whole tables.
+
 Not ported: the TPU's packed table layouts (a TPU layout trick, never
-ported), ``steps_per_call``, and everything multi-device (the sharded
-eval, ``n_model_shards > 1``, per-process file slices).
+ported), ``steps_per_call``, and the dense autograd step on a mesh.
 
 Run: python -m esrecsys_tpu_torch.workloads.playlist \
          --train_pattern 'data/training/*.tfrecord' \
@@ -32,6 +40,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import math
 import os
 import tempfile
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -42,8 +51,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from esrecsys_tpu_torch.core import config as config_lib
+from esrecsys_tpu_torch.core import mesh as mesh_lib
 from esrecsys_tpu_torch.core.device import (array_to_device, pad_to_multiple,
                                            resolve_device)
+from esrecsys_tpu_torch.core.mesh import Mesh
 from esrecsys_tpu_torch.core.tracking import make_tracker
 from esrecsys_tpu_torch.data import pipelines
 from esrecsys_tpu_torch.models.playlist import (PlaylistModel,
@@ -55,16 +66,19 @@ from esrecsys_tpu_torch.ops import guards, negatives
 from esrecsys_tpu_torch.ops.losses import relu
 from esrecsys_tpu_torch.ops.lookup import gather_rows
 from esrecsys_tpu_torch.ops.metrics import ranking_metrics
-from esrecsys_tpu_torch.ops.optim import (lazy_momentum_update,
+from esrecsys_tpu_torch.ops.optim import (dense_momentum_update,
+                                          lazy_momentum_update,
                                           momentum_catchup_rows,
                                           momentum_flush, momentum_init,
-                                          momentum_settle)
-from esrecsys_tpu_torch.ops.scatter import scatter_add_rows
+                                          momentum_settle, sgd_update)
+from esrecsys_tpu_torch.parallel.sharding import gather_tree
+from esrecsys_tpu_torch.parallel.table import shard_rows
 from esrecsys_tpu_torch.retrieval.fused import (binned_affinity_candidates,
                                                 pack_catalog)
 from esrecsys_tpu_torch.retrieval.mips import (NEG_INF, chunked_grouped_topk,
                                                chunked_topk, pad_topk,
                                                require_full_f32,
+                                               sharded_scored_topk,
                                                topk_lower_index_first)
 from esrecsys_tpu_torch.train.checkpoint import Checkpointer
 from esrecsys_tpu_torch.train.export import export_model
@@ -122,7 +136,8 @@ class PlaylistConfig:
     checkpoint_every_steps: int = 100_000
     corpus_block: int = 131_072
     seed: int = 0
-    n_model_shards: int = 1  # > 1 (the sharded tables and eval) raises
+    n_model_shards: int = 1  # model axis of the mesh: tables row-sharded
+    # over it, the eval's corpus too (train() runs on every rank)
     resume: bool = False
     # SIGTERM -> a stop at the next step, a checkpoint and a clean exit;
     # relaunch with resume=True (train/preemption.py)
@@ -213,24 +228,42 @@ def use_lazy_momentum(cfg: PlaylistConfig) -> bool:
 
 
 def init_state(cfg: PlaylistConfig, device=None,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               mesh: Optional[Mesh] = None
                ) -> Tuple[PlaylistModel, TrainState]:
     """The model (tables padded to 128 rows where D divides 128, as the
-    reference pads them) initialised from ``generator`` (default: seeded
-    with ``cfg.seed`` on the device), and its train state: per table a
-    momentum buffer (the dense carrier) or a momentum buffer and
-    ``last_step`` rows (the lazy carrier) for the row-sparse step with
-    momentum, nothing at momentum 0, an SGD optimizer for the dense
-    step."""
+    reference pads them, and to a multiple of the model axis) initialised
+    from ``generator`` (default: seeded with ``cfg.seed`` on the device),
+    and its train state: per table a momentum buffer (the dense carrier)
+    or a momentum buffer and ``last_step`` rows (the lazy carrier) for the
+    row-sparse step with momentum, nothing at momentum 0, an SGD optimizer
+    for the dense step.
+
+    With a ``mesh`` every rank draws the whole tables from the same seed
+    and keeps its row-shard (``parallel/table.shard_rows``), so any mesh
+    shape starts from the same weights; the state is the shard's, and
+    ``model.mesh`` names the mesh."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    rows_multiple = table_rows_multiple(cfg.feature_size)
+    if mesh is not None:
+        rows_multiple = math.lcm(rows_multiple, mesh.n_model)
     model = PlaylistModel(
         cfg.feature_size, cfg.album_hash_buckets, cfg.num_artists,
-        table_rows_multiple=table_rows_multiple(cfg.feature_size),
+        table_rows_multiple=rows_multiple,
         device=device, generator=generator,
         compute_dtype=(torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                        else None))
+    model.mesh = mesh
+    if mesh is not None:
+        if not cfg.sparse_updates:
+            raise ValueError(
+                "a mesh needs the row-sparse step (sparse_updates=True): "
+                "the dense autograd step on a mesh is not ported")
+        for table in (model.album_embed, model.artist_embed):
+            table.embedding = nn.Parameter(
+                shard_rows(table.embedding.detach(), mesh))
     if cfg.sparse_updates:
         opt_state = None
         if cfg.momentum:
@@ -256,6 +289,7 @@ def settled_params(state: TrainState, cfg: PlaylistConfig) -> PlaylistModel:
     out = PlaylistModel(model.feature_size, model.album_hash_buckets,
                         model.num_artists, device="meta",
                         compute_dtype=model.compute_dtype)
+    out.mesh = getattr(model, "mesh", None)
     with torch.no_grad():
         for name, table in (("album", model.album_embed),
                             ("artist", model.artist_embed)):
@@ -346,6 +380,71 @@ def make_train_step(model: PlaylistModel, cfg: PlaylistConfig,
     return train_step
 
 
+def _step_ids(cfg: PlaylistConfig, batch: Batch, neg_album: torch.Tensor,
+              neg_artist: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step's album and artist row ids, ctx | next | neg (albums
+    floor-mod the bucket count), int32 and guarded."""
+    alb_ids = torch.remainder(torch.cat([
+        batch["album_context"].reshape(-1),
+        batch["next_album"].reshape(-1), neg_album.reshape(-1)]),
+        cfg.album_hash_buckets).to(torch.int32)
+    art_ids = torch.cat([
+        batch["artist_context"].reshape(-1),
+        batch["next_artist"].reshape(-1),
+        neg_artist.reshape(-1)]).to(torch.int32)
+    alb_ids = guards.check_ids(alb_ids, cfg.album_hash_buckets, "album_embed")
+    art_ids = guards.check_ids(art_ids, cfg.num_artists, "artist_embed")
+    return alb_ids, art_ids
+
+
+def _row_grads(model: PlaylistModel, cfg: PlaylistConfig, batch: Batch,
+               rows_alb: torch.Tensor, rows_art: torch.Tensor,
+               neg_album: torch.Tensor, neg_artist: torch.Tensor):
+    """(album row grads, artist row grads, metrics): the loss of the batch
+    at the gathered rows, differentiated with respect to them."""
+    b = batch["track_context"].shape[0]
+    c, m = cfg.context_size, cfg.max_next
+    rows_alb.requires_grad_()
+    rows_art.requires_grad_()
+    e = torch.cat([rows_alb, rows_art], dim=-1)  # (n, 2F)
+    d = e.shape[-1]
+    ctx_e = e[:b * c].reshape(b, c, d)
+    nxt_e = e[b * c:b * (c + m)].reshape(b, m, d)
+    neg_e = e[b * (c + m):]
+    if not cfg.shared_negatives:
+        neg_e = neg_e.reshape(b, cfg.num_negatives, d)
+    result = score_embeddings(
+        ctx_e, nxt_e, neg_e, batch["next_album"], batch["next_artist"],
+        neg_album, neg_artist, batch["album_context"],
+        batch["artist_context"], compute_dtype=model.compute_dtype)
+    metrics = playlist_loss(result, batch["next_mask"], cfg.regularization)
+    g_alb, g_art = torch.autograd.grad(metrics["loss"], (rows_alb, rows_art))
+    return g_alb, g_art, {k: v.detach() for k, v in metrics.items()}
+
+
+def _apply_row_updates(state: TrainState, cfg: PlaylistConfig, ids: tuple,
+                       grads: tuple, mesh: Optional[Mesh] = None) -> None:
+    """The step's update of both tables in place: SGD at momentum 0, else
+    the configured momentum carrier (``ops/optim.py``); on a mesh each
+    rank updates its shard with every data row's gradients."""
+    lr, mu = cfg.learning_rate, cfg.momentum
+    tables = (state.params.album_embed.embedding,
+              state.params.artist_embed.embedding)
+    with torch.no_grad():
+        for name, table, t_ids, g in zip(("album", "artist"), tables, ids,
+                                         grads):
+            if use_lazy_momentum(cfg):
+                lazy_momentum_update(table, state.opt_state[name], t_ids, g,
+                                     lr=lr, mu=mu, step=state.step,
+                                     rows_sharded=mesh)
+            elif mu:
+                dense_momentum_update(table, state.opt_state[name], t_ids, g,
+                                      lr=lr, mu=mu, rows_sharded=mesh)
+            else:
+                sgd_update(table, t_ids, g, lr=lr, rows_sharded=mesh)
+
+
 def make_sparse_train_step(model: PlaylistModel, cfg: PlaylistConfig,
                            corpus: Batch, seed: int = 0):
     """Row-sparse SGD step, at momentum 0 or with either momentum carrier:
@@ -364,26 +463,14 @@ def make_sparse_train_step(model: PlaylistModel, cfg: PlaylistConfig,
     batch, neg_ids=None)`` as in :func:`make_train_step`."""
     lazy = use_lazy_momentum(cfg)
     lr, mu = cfg.learning_rate, cfg.momentum
-    n_albums = cfg.album_hash_buckets
     for_step = _step_generator(model.album_embed.embedding.device, seed)
 
     def train_step(state: TrainState, batch: Batch,
                    neg_ids: Optional[torch.Tensor] = None):
-        b = batch["track_context"].shape[0]
         neg_idx, neg_album, neg_artist = _negatives(
-            cfg, corpus, for_step, state.step, b, neg_ids)
-        c, m = cfg.context_size, cfg.max_next
-        alb_ids = torch.remainder(torch.cat([
-            batch["album_context"].reshape(-1),
-            batch["next_album"].reshape(-1), neg_album.reshape(-1)]),
-            n_albums).to(torch.int32)
-        art_ids = torch.cat([
-            batch["artist_context"].reshape(-1),
-            batch["next_artist"].reshape(-1),
-            neg_artist.reshape(-1)]).to(torch.int32)
-        alb_ids = guards.check_ids(alb_ids, n_albums, "album_embed")
-        art_ids = guards.check_ids(art_ids, cfg.num_artists, "artist_embed")
-
+            cfg, corpus, for_step, state.step,
+            batch["track_context"].shape[0], neg_ids)
+        alb_ids, art_ids = _step_ids(cfg, batch, neg_album, neg_artist)
         t_alb = state.params.album_embed.embedding
         t_art = state.params.artist_embed.embedding
         with torch.no_grad():
@@ -396,52 +483,88 @@ def make_sparse_train_step(model: PlaylistModel, cfg: PlaylistConfig,
                 rows_art += momentum_catchup_rows(
                     state.opt_state["artist"], art_ids, lr=lr, mu=mu,
                     step=state.step)
-        rows_alb.requires_grad_()
-        rows_art.requires_grad_()
-        e = torch.cat([rows_alb, rows_art], dim=-1)  # (n, 2F)
-        d = e.shape[-1]
-        ctx_e = e[:b * c].reshape(b, c, d)
-        nxt_e = e[b * c:b * (c + m)].reshape(b, m, d)
-        neg_e = e[b * (c + m):]
-        if not cfg.shared_negatives:
-            neg_e = neg_e.reshape(b, cfg.num_negatives, d)
-        result = score_embeddings(
-            ctx_e, nxt_e, neg_e, batch["next_album"], batch["next_artist"],
-            neg_album, neg_artist, batch["album_context"],
-            batch["artist_context"], compute_dtype=model.compute_dtype)
-        metrics = playlist_loss(result, batch["next_mask"],
-                                cfg.regularization)
-        g_alb, g_art = torch.autograd.grad(metrics["loss"],
-                                           (rows_alb, rows_art))
-
-        with torch.no_grad():
-            if lazy:
-                lazy_momentum_update(t_alb, state.opt_state["album"],
-                                     alb_ids, g_alb, lr=lr, mu=mu,
-                                     step=state.step)
-                lazy_momentum_update(t_art, state.opt_state["artist"],
-                                     art_ids, g_art, lr=lr, mu=mu,
-                                     step=state.step)
-            elif mu:
-                m_alb = state.opt_state["album"]["momentum"]
-                m_art = state.opt_state["artist"]["momentum"]
-                m_alb.mul_(mu)
-                m_art.mul_(mu)
-                scatter_add_rows(m_alb, alb_ids, g_alb)
-                scatter_add_rows(m_art, art_ids, g_art)
-                t_alb.sub_(lr * m_alb)
-                t_art.sub_(lr * m_art)
-            else:
-                scatter_add_rows(t_alb, alb_ids, -lr * g_alb)
-                scatter_add_rows(t_art, art_ids, -lr * g_art)
+        g_alb, g_art, metrics = _row_grads(model, cfg, batch, rows_alb,
+                                           rows_art, neg_album, neg_artist)
+        _apply_row_updates(state, cfg, (alb_ids, art_ids), (g_alb, g_art))
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
+
+    return train_step
+
+
+def _owner_rows(table: torch.Tensor, opt_state, ids: torch.Tensor,
+                mesh: Mesh, cfg: PlaylistConfig, step: int) -> torch.Tensor:
+    """This rank's part of the settled rows ``ids`` of a row-sharded table
+    (zeros for the rows other shards own); the data row's sum of the
+    parts is the rows (``parallel/table.py``'s owner-computes)."""
+    local = mesh.owned(ids, table.shape[0])
+    rows = gather_rows(table, local)
+    if use_lazy_momentum(cfg):
+        rows += momentum_catchup_rows(opt_state, local, lr=cfg.learning_rate,
+                                      mu=cfg.momentum, step=step)
+    return rows
+
+
+def make_sharded_train_step(model: PlaylistModel, cfg: PlaylistConfig,
+                            corpus: Batch, mesh: Mesh, seed: int = 0):
+    """The row-sparse step of :func:`make_sparse_train_step` on a mesh,
+    each rank holding its shard of both tables and its data row's batch:
+
+      1. the rows: each shard gathers the ids it owns (the lazy carrier
+         adding their catch-up), and the parts are summed over the data
+         row's ranks (one all-reduce per table);
+      2. the loss of the data row's batch, differentiated with respect to
+         the rows, and scaled by ``1 / n_data``: the loss is the mean over
+         the global batch, which the data rows split evenly;
+      3. each rank gathers every data row's ids and row gradients and
+         applies the updates of the rows it owns with the configured
+         carrier (``ops/optim.py`` ``rows_sharded``).
+
+    Negatives are drawn for the global batch from the step's seed, the
+    same draw on every rank (one shared pool of ``num_negatives``, or per
+    playlist, of which a data row takes its rows). On a 1x1 mesh this is
+    :func:`make_sparse_train_step` bit for bit. ``train_step(state,
+    batch, neg_ids=None)``: ``batch`` is the data row's, ``neg_ids`` the
+    global draw."""
+    if not cfg.sparse_updates:
+        raise ValueError("the sharded step is the row-sparse step: set "
+                         "sparse_updates=True")
+    for_step = _step_generator(model.album_embed.embedding.device, seed)
+    n_data, row = mesh.n_data, mesh.data_index
+
+    def train_step(state: TrainState, batch: Batch,
+                   neg_ids: Optional[torch.Tensor] = None):
+        b = batch["track_context"].shape[0]
+        neg_idx, neg_album, neg_artist = _negatives(
+            cfg, corpus, for_step, state.step, b * n_data, neg_ids)
+        if not cfg.shared_negatives:
+            mine = slice(row * b, (row + 1) * b)
+            neg_album, neg_artist = neg_album[mine], neg_artist[mine]
+        alb_ids, art_ids = _step_ids(cfg, batch, neg_album, neg_artist)
+        with torch.no_grad():
+            rows_alb = mesh.sum_model(_owner_rows(
+                state.params.album_embed.embedding, (state.opt_state or {})
+                .get("album"), alb_ids, mesh, cfg, state.step))
+            rows_art = mesh.sum_model(_owner_rows(
+                state.params.artist_embed.embedding, (state.opt_state or {})
+                .get("artist"), art_ids, mesh, cfg, state.step))
+        g_alb, g_art, metrics = _row_grads(model, cfg, batch, rows_alb,
+                                           rows_art, neg_album, neg_artist)
+        if n_data > 1:
+            g_alb, g_art = g_alb / n_data, g_art / n_data
+        _apply_row_updates(state, cfg, (alb_ids, art_ids), (g_alb, g_art),
+                           mesh)
+        state.step += 1
+        return state, {k: mesh.mean_data(v) for k, v in metrics.items()}
 
     return train_step
 
 
 def select_train_step(model: PlaylistModel, cfg: PlaylistConfig,
-                      corpus: Batch, seed: int = 0):
+                      corpus: Batch, seed: int = 0,
+                      mesh: Optional[Mesh] = None):
+    if mesh is not None:
+        return make_sharded_train_step(model, cfg, corpus, mesh, seed)
     if cfg.sparse_updates:
         return make_sparse_train_step(model, cfg, corpus, seed)
     return make_train_step(model, cfg, corpus, seed)
@@ -599,6 +722,171 @@ def make_eval_step(model: PlaylistModel, cfg: PlaylistConfig, corpus: Batch):
     return eval_step
 
 
+def _sharded_layout(cfg: PlaylistConfig, corpus: Batch, mesh: Mesh):
+    """(num_items, block, rows per shard, padded albums, padded artists):
+    the corpus padded to whole blocks on every shard, as the reference's
+    sharded eval pads it."""
+    num_items = int(corpus["tracks"].shape[0])
+    block = _corpus_block(cfg, num_items)
+    padded = pad_to_multiple(num_items, mesh.n_model * block)
+    return (num_items, block, padded // mesh.n_model,
+            F.pad(corpus["albums"], (0, padded - num_items)),
+            F.pad(corpus["artists"], (0, padded - num_items)))
+
+
+def _settled_tables(state: TrainState, cfg: PlaylistConfig):
+    """(album, artist) tables with the lazy carrier's catch-up flushed
+    (the rank's shards on a mesh)."""
+    settled = settled_params(state, cfg)
+    return settled.album_embed.embedding, settled.artist_embed.embedding
+
+
+def make_sharded_corpus_embed_setup(model: PlaylistModel,
+                                    cfg: PlaylistConfig, corpus: Batch,
+                                    mesh: Mesh):
+    """(state) -> this rank's (rows per shard, 2F) slice of the corpus
+    embedding matrix, computed once per eval round. The matrix is
+    row-sharded over ``model`` like the catalog: for each model index j,
+    every shard gathers the rows it owns of slice j's tracks and the parts
+    are reduced into rank j (one reduce per slice; a rank holds one slice
+    at a time)."""
+    num_items, _, rps, albums_p, artists_p = _sharded_layout(cfg, corpus,
+                                                             mesh)
+
+    def setup(state: TrainState):
+        t_alb, t_art = _settled_tables(state, cfg)
+        mine = None
+        with torch.no_grad():
+            for j in range(mesh.n_model):
+                sl = slice(j * rps, (j + 1) * rps)
+                part = torch.cat([
+                    gather_rows(t_alb, mesh.owned(torch.remainder(
+                        albums_p[sl], cfg.album_hash_buckets),
+                        t_alb.shape[0])),
+                    gather_rows(t_art, mesh.owned(artists_p[sl],
+                                                  t_art.shape[0]))], dim=-1)
+                mesh.reduce_model_to(part, j)
+                if j == mesh.model_index:
+                    mine = part
+                del part
+        return mine
+
+    return setup
+
+
+def _sharded_ctx_embed(state: TrainState, cfg: PlaylistConfig,
+                       album_ctx: torch.Tensor, artist_ctx: torch.Tensor,
+                       mesh: Mesh) -> torch.Tensor:
+    """(B, C, 2F) settled context embeddings from row-sharded tables: each
+    shard's owned rows (plus their lazy catch-up), summed over the data
+    row's ranks."""
+    opt = state.opt_state or {}
+    e = torch.cat([
+        _owner_rows(state.params.album_embed.embedding, opt.get("album"),
+                    torch.remainder(album_ctx, cfg.album_hash_buckets)
+                    .reshape(-1), mesh, cfg, state.step),
+        _owner_rows(state.params.artist_embed.embedding, opt.get("artist"),
+                    artist_ctx.reshape(-1), mesh, cfg, state.step)], dim=-1)
+    return mesh.sum_model(e).reshape(album_ctx.shape + (e.shape[-1],))
+
+
+def make_sharded_eval_topk(model: PlaylistModel, cfg: PlaylistConfig,
+                           corpus: Batch, mesh: Mesh):
+    """(state, batch, corpus_embed=None) -> (top_vals (B, k), top_idx (B,
+    k) global ids) of the data row's playlists: the catalog-sharded exact
+    eval. Each shard scans its slice of the corpus matrix
+    (:func:`make_sharded_corpus_embed_setup`) with the affinity score and
+    the group-max prefilter, and the shards' top-k are all-gathered and
+    topped again (``retrieval/mips.sharded_scored_topk``). Large batches
+    run in query chunks, as the exact eval's. On a 1x1 mesh this is
+    :func:`make_eval_topk`'s exact eval bit for bit."""
+    if cfg.eval_fused_bins:
+        raise ValueError(
+            "eval_fused_bins requires the unsharded eval path "
+            "(n_model_shards=1): the fused kernel scans a replicated "
+            "corpus; the sharded eval shards the corpus axis instead")
+    num_items, block, rps, albums_p, artists_p = _sharded_layout(
+        cfg, corpus, mesh)
+    mine = slice(mesh.model_index * rps, (mesh.model_index + 1) * rps)
+    alb_local, art_local = albums_p[mine], artists_p[mine]
+    setup = make_sharded_corpus_embed_setup(model, cfg, corpus, mesh)
+
+    def score_fn(ctx_embed, album_ctx, artist_ctx, items, item_album,
+                 item_artist):
+        return affinity_scores(ctx_embed, items, item_album, item_artist,
+                               album_ctx, artist_ctx)
+
+    def eval_topk(state: TrainState, batch: Batch, corpus_embed=None):
+        if corpus_embed is None:
+            corpus_embed = setup(state)
+        require_full_f32(corpus_embed)
+        album_ctx = batch["album_context"]
+        artist_ctx = batch["artist_context"]
+        with torch.no_grad():
+            ctx_embed = _sharded_ctx_embed(state, cfg, album_ctx, artist_ctx,
+                                           mesh)
+            B = ctx_embed.shape[0]
+            Bq = min(B, _eval_query_chunk(cfg, block))
+            parts = [sharded_scored_topk(
+                (ctx_embed[i:i + Bq], album_ctx[i:i + Bq],
+                 artist_ctx[i:i + Bq]),
+                (corpus_embed, alb_local, art_local), score_fn, cfg.eval_k,
+                mesh, block, valid_items=num_items, group=cfg.eval_group)
+                for i in range(0, B, Bq)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+
+    return eval_topk
+
+
+def _data_mean(step_fn, mesh: Optional[Mesh]):
+    """An eval step whose metrics are averaged over the data rows (each
+    evaluates its own equal slice of the global batch)."""
+    if mesh is None or mesh.n_data == 1:
+        return step_fn
+
+    def averaged(*args):
+        out = step_fn(*args)
+        return {k: mesh.mean_data(torch.as_tensor(v, dtype=torch.float32))
+                for k, v in out.items()}
+
+    return averaged
+
+
+def make_sharded_eval_step(model: PlaylistModel, cfg: PlaylistConfig,
+                           corpus: Batch, mesh: Mesh):
+    """(state, batch, corpus_embed=None) -> the metrics of
+    :func:`make_eval_step` from the catalog-sharded top-k
+    (:func:`make_sharded_eval_topk`), averaged over the data rows."""
+    eval_topk = make_sharded_eval_topk(model, cfg, corpus, mesh)
+
+    def eval_step(state: TrainState, batch: Batch, corpus_embed=None):
+        top_vals, top_idx = eval_topk(state, batch, corpus_embed)
+        return _hit_metrics(batch, top_vals, top_idx, corpus["tracks"],
+                            corpus["artists"], cfg.eval_k)
+
+    return _data_mean(eval_step, mesh)
+
+
+def select_eval_step(model: PlaylistModel, cfg: PlaylistConfig,
+                     corpus: Batch, mesh: Optional[Mesh] = None):
+    """The sharded eval where the mesh shards the model axis (it refuses
+    ``eval_fused_bins``, as the reference does), else the replicated one
+    (exact or fused), its metrics averaged over the data rows."""
+    if mesh is not None and mesh.n_model > 1:
+        return make_sharded_eval_step(model, cfg, corpus, mesh)
+    return _data_mean(make_eval_step(model, cfg, corpus), mesh)
+
+
+def select_eval_setup(model: PlaylistModel, cfg: PlaylistConfig,
+                      corpus: Batch, mesh: Optional[Mesh] = None):
+    """The per-round corpus-embedding setup matching
+    :func:`select_eval_step`."""
+    if mesh is not None and mesh.n_model > 1:
+        return make_sharded_corpus_embed_setup(model, cfg, corpus, mesh)
+    return make_corpus_embed_setup(model, cfg, corpus)
+
+
 def _hit_metrics(batch: Batch, top_vals: torch.Tensor, top_idx: torch.Tensor,
                  tracks: torch.Tensor, artists: torch.Tensor, k: int):
     """Membership of the rank-ordered retrieved items in each playlist's
@@ -641,7 +929,9 @@ def restore_adapt_carrier(ckpt: Checkpointer, state_template: TrainState,
     the dense trajectory's) and drops ``last_step``; dense to lazy adds
     ``last_step = step`` (dense rows are always settled). The template's
     tensors receive the result. A checkpoint that fits neither carrier
-    raises ``ValueError``."""
+    raises ``ValueError``. On a mesh the template and the checkpoint hold
+    this rank's shards, and both conversions act row by row, so they need
+    no collective."""
     try:
         return ckpt.restore(state_template)
     except ValueError:
@@ -688,6 +978,19 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Batch:
     return {k: array_to_device(v, device) for k, v in batch.items()}
 
 
+def whole_params(model: PlaylistModel) -> Dict[str, Dict[str, np.ndarray]]:
+    """The model's tables as the reference's nested ``{module: {param:
+    array}}`` on the host, gathered whole from the data row's shards on a
+    mesh (a collective every rank of the row calls)."""
+    tree = {"album_embed": {"embedding": model.album_embed.embedding},
+            "artist_embed": {"embedding": model.artist_embed.embedding}}
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None:
+        tree = gather_tree(tree, mesh)
+    return {m: {k: v.detach().cpu().numpy() for k, v in leaves.items()}
+            for m, leaves in tree.items()}
+
+
 def train(cfg: PlaylistConfig, tracker=None, corpus_np=None, device=None,
           *, preemption=None,
           hooks: Sequence[Callable[[TrainState, int], None]] = ()
@@ -711,12 +1014,26 @@ def train(cfg: PlaylistConfig, tracker=None, corpus_np=None, device=None,
     ``PreemptionGuard`` to stop the run from outside. ``hooks`` run as
     ``hook(state, step)`` after every step. A preempted run skips the
     export. Runs on ``device`` (default: the card).
+
+    Under ``torch.distributed`` (started here from ``torchrun``'s
+    environment, or by the caller) or with ``n_model_shards > 1``, the
+    run is one rank of an ``n_data x n_model_shards`` mesh over every
+    rank (``core/mesh.make_mesh``; too few ranks raise ``ValueError``):
+    ``batch_size`` is the global batch, each rank reads its slice of the
+    files (seed ``seed + rank``) and takes ``batch_size / ranks``
+    examples a step, the tables are row-sharded, the eval is the sharded
+    one, each rank checkpoints its shards under
+    ``checkpoints/rank-<r>-of-<n>``, and rank 0 exports the whole tables.
     """
-    if cfg.n_model_shards > 1:
-        raise NotImplementedError(
-            "n_model_shards > 1 (sharded tables and eval) is not ported yet "
-            "(ROADMAP queue 1 item 8, multi-device)")
     device = resolve_device(device)
+    mesh = None
+    if (mesh_lib.distributed_init_if_needed(device=device)
+            or mesh_lib.is_initialized() or cfg.n_model_shards > 1):
+        if mesh_lib.is_initialized():
+            device = mesh_lib.rank_device(device)
+        mesh = mesh_lib.make_mesh(n_model=cfg.n_model_shards)
+    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
+    local_bs = mesh_lib.process_local_batch(cfg.batch_size)
     if corpus_np is None:
         corpus_np = pipelines.load_track_corpus(
             cfg.all_tracks,
@@ -725,48 +1042,53 @@ def train(cfg: PlaylistConfig, tracker=None, corpus_np=None, device=None,
             f"{cfg.dictionaries}/artist_uri_dict.json")
     corpus = {k: torch.from_numpy(v).to(device)
               for k, v in corpus_np.items() if isinstance(v, np.ndarray)}
-    model, state = init_state(cfg, device)
+    model, state = init_state(cfg, device, mesh=mesh)
 
-    ckpt = Checkpointer(f"{cfg.work_dir}/checkpoints")
+    ckpt_dir = f"{cfg.work_dir}/checkpoints"
+    if world > 1:  # a checkpoint per rank: its shards and replicas
+        ckpt_dir = f"{ckpt_dir}/rank-{rank}-of-{world}"
+    ckpt = Checkpointer(ckpt_dir)
     if cfg.resume and ckpt.latest_step() is not None:
         state = restore_adapt_carrier(ckpt, state, cfg)
         log.info("resumed from step %d", state.step)
 
     own_tracker = tracker is None
     if own_tracker:
-        tracker = make_tracker(run_dir=cfg.work_dir,
+        tracker = make_tracker(run_dir=cfg.work_dir if rank == 0 else
+                               f"{cfg.work_dir}/rank-{rank}",
                                config=config_lib.to_dict(cfg))
 
     def make_iter(pattern, shuf):
         if pattern.endswith(".npz"):  # ETL-packed shards
             return pipelines.packed_playlist_batches(
-                pattern, batch_size=cfg.batch_size, shuffle=shuf > 0,
-                seed=cfg.seed)
+                pattern, batch_size=local_bs, shuffle=shuf > 0,
+                seed=cfg.seed + rank)
         return pipelines.playlist_batches(
             pattern, context_size=cfg.context_size, max_next=cfg.max_next,
-            batch_size=cfg.batch_size, shuffle_buffer=shuf, seed=cfg.seed)
+            batch_size=local_bs, shuffle_buffer=shuf, seed=cfg.seed + rank)
 
     train_iter = make_iter(cfg.train_pattern, 1000)
     first = next(train_iter)
-    if first["next_track"].shape != (cfg.batch_size, cfg.max_next):
+    if first["next_track"].shape != (local_bs, cfg.max_next):
         raise ValueError(
             f"batch shape {first['next_track'].shape} != config "
-            f"({cfg.batch_size}, {cfg.max_next}): packed shards carry their "
+            f"({local_bs}, {cfg.max_next}): packed shards carry their "
             "own max_next (pack_max_next at ETL time); set max_next to match")
     validate_batch(first, corpus_np["num_tracks"], corpus_np["num_albums"],
                    corpus_np["num_artists"])
 
-    step_fn = select_train_step(model, cfg, corpus, seed=cfg.seed)
-    eval_fn = make_eval_step(model, cfg, corpus)
+    step_fn = select_train_step(model, cfg, corpus, seed=cfg.seed, mesh=mesh)
+    eval_fn = select_eval_step(model, cfg, corpus, mesh)
+    place = ((lambda batch: batch) if mesh is not None
+             else (lambda batch: to_device(batch, device)))
     try:
         result = fit(
             state,
-            lambda st, batch: step_fn(st, to_device(batch, device)),
+            lambda st, batch: step_fn(st, place(batch)),
             train_iter,
             num_steps=cfg.max_steps,
-            eval_step=lambda st, batch, aux: eval_fn(
-                st, to_device(batch, device), aux),
-            eval_setup_fn=make_corpus_embed_setup(model, cfg, corpus),
+            eval_step=lambda st, batch, aux: eval_fn(st, place(batch), aux),
+            eval_setup_fn=select_eval_setup(model, cfg, corpus, mesh),
             eval_iter_fn=lambda: make_iter(cfg.test_pattern, 0),
             eval_every=cfg.eval_every_steps,
             eval_steps=max(1, cfg.eval_steps // cfg.batch_size),
@@ -777,14 +1099,17 @@ def train(cfg: PlaylistConfig, tracker=None, corpus_np=None, device=None,
             hooks=hooks,
             hook_every=1,
             examples_per_step=cfg.batch_size,
+            mesh=mesh,
+            device=device,
             preemption=(cfg.graceful_shutdown if preemption is None
                         else preemption),
         )
         if not log_if_preempted(result, log):
-            export_model(cfg.work_dir, "playlist",
-                         settled_params(result.state, cfg),
-                         step=result.state.step, tracker=tracker,
-                         metadata=export_metadata(cfg))
+            params = whole_params(settled_params(result.state, cfg))
+            if rank == 0:
+                export_model(cfg.work_dir, "playlist", params,
+                             step=result.state.step, tracker=tracker,
+                             metadata=export_metadata(cfg))
         return result
     finally:
         if own_tracker:

@@ -142,12 +142,47 @@ def test_cadences_match_the_reference_fit(case):
 
 def test_options_that_stay_unported_raise():
     state = TrainState(step=0, params={"w": torch.zeros(3)})
-    for kw in (dict(steps_per_call=4), dict(mesh=object()),
-               dict(state_pack=lambda s: s)):
+    for kw in (dict(steps_per_call=4), dict(state_pack=lambda s: s)):
         with pytest.raises(NotImplementedError, match="not ported"):
             fit(state, torch_step, batches(), 2, **kw)
     with pytest.raises(ValueError, match="eval_iter_fn"):
         fit(state, torch_step, batches(), 2, eval_step=torch_eval)
+
+
+def test_fit_places_batches_on_a_real_mesh():
+    """``mesh``: a 1x1 grid of this process (no process group, so its
+    collectives are the identity); the steps and evals see the batches
+    as tensors on the device, the data row's batch, and the run equals
+    the mesh-less one."""
+    from esrecsys_tpu_torch.core.mesh import make_mesh
+
+    mesh = make_mesh(n_data=1, n_model=1)
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.rank == 0
+    seen = []
+
+    def step(state, batch):
+        assert isinstance(batch["x"], torch.Tensor)
+        seen.append(batch["x"].device.type)
+        state.params["w"] += batch["x"]
+        state.step += 1
+        return state, {"loss": batch["x"].sum()}
+
+    def ev(state, batch, aux):
+        assert isinstance(batch["x"], torch.Tensor)
+        return {"m": state.params["w"].sum() + batch["x"].sum() + aux}
+
+    runs = []
+    for m, dev in ((mesh, "cpu"), (None, None)):
+        state = TrainState(step=0, params={"w": torch.zeros(3)})
+        res = fit(state, step if m is not None else torch_step, batches(), 6,
+                  mesh=m, device=dev, eval_step=ev if m is not None
+                  else torch_eval, eval_iter_fn=batches, eval_every=3,
+                  eval_steps=2, eval_setup_fn=lambda s: 1.0)
+        runs.append(res)
+    assert seen == ["cpu"] * 6
+    np.testing.assert_array_equal(runs[0].state.params["w"].numpy(),
+                                  runs[1].state.params["w"].numpy())
+    assert runs[0].last_eval_metrics == runs[1].last_eval_metrics
 
 
 def test_profile_dir_writes_a_chrome_trace_on_the_cpu(tmp_path):

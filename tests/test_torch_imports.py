@@ -63,18 +63,22 @@ def test_port_has_the_slice_modules():
                 "workloads/txt2url.py", "native/jpeg.cc", "data/jpeg.py",
                 "data/images.py", "models/cnn.py", "workloads/stl.py",
                 "retrieval/html.py", "tools/random_recommender.py",
-                "etl/fetch_images.py", "serving/encoders.py"):
+                "etl/fetch_images.py", "serving/encoders.py",
+                "core/mesh.py", "parallel/table.py",
+                "parallel/sharding.py", "tools/mesh_check.py"):
         assert (PORT / rel).is_file(), rel
 
 
 @pytest.mark.parametrize("name", ["test_torch_wiki_etl.py",
                                   "test_torch_txt2url.py",
                                   "test_torch_jpeg.py", "test_torch_stl.py",
-                                  "test_torch_encoders.py"])
+                                  "test_torch_encoders.py",
+                                  "test_torch_mesh.py",
+                                  "test_torch_sharded.py"])
 def test_the_wikipedia_slice_has_its_parity_tests(name):
-    """The ETL chain's, txt2url's, and the Shop-the-Look pipeline's and
-    the encoders' parity tests stand beside the modules they hold against
-    the JAX package."""
+    """The ETL chain's, txt2url's, the Shop-the-Look pipeline's, the
+    encoders', and the mesh's and sharded playlist's parity tests stand
+    beside the modules they hold against the JAX package."""
     text = (ROOT / "tests" / name).read_text()
     assert "import esrecsys_tpu" in text or "from esrecsys_tpu." in text
     assert "from esrecsys_tpu_torch" in text
@@ -92,6 +96,8 @@ def test_import_leaves_jax_unloaded():
             "esrecsys_tpu_torch.convert, "
             "esrecsys_tpu_torch.workloads.playlist, "
             "esrecsys_tpu_torch.train.loop, esrecsys_tpu_torch.ops.lookup, "
+            "esrecsys_tpu_torch.core.mesh, esrecsys_tpu_torch.parallel.table, "
+            "esrecsys_tpu_torch.parallel.sharding, "
             "esrecsys_tpu_torch.ops.scatter, "
             "esrecsys_tpu_torch.kernels.fused_affinity, "
             "esrecsys_tpu_torch.kernels.smem_scatter, "
