@@ -70,9 +70,9 @@ the result line:
                 fused and fused int8 modes, 8 adds of 1,024 rows, answers
                 equal to a fresh service on the grown catalog and no
                 buffer reallocated; a live fused server reloaded under
-                traffic to the perturbed catalog (no failed request); two
-                deploy cycles of full_scale_run (20 steps, then 2 x 10,
-                each reloaded into a live approx server); serving_bench at
+                traffic to the perturbed catalog (no failed request); a
+                deploy cycle of full_scale_run (20 steps, then 10, the
+                result reloaded into a live approx server); serving_bench at
                 2,262,292 x 64, k=500, batch 256 over every ported mode,
                 against its overlap floors;
   9. sublinear - the IVF and PQ modes on the same catalog at the bench's
@@ -89,7 +89,7 @@ the result line:
                 grown by 8 adds of 1,024 rows equal to one over the grown
                 catalog; serving_bench --structured over the six modes,
                 then the IVF modes with --ivf_max_cell 1024, against their
-                floors; two deploy cycles into a live ivf_pq server with
+                floors; a deploy cycle into a live ivf_pq server with
                 aux reuse; then scatter_add at the IVF and PQ centroid-sum
                 pile-ups and gather_pool at the IVF candidate shape
                 against their plain versions;
@@ -1972,6 +1972,8 @@ BENCH_FLOORS = {"exact": None, "approx": APPROX_FLOOR,
 SUBLINEAR_MODES = ("ivf", "ivf_quantized", "pq", "ivf_pq", "pq_r8",
                    "ivf_pq_r8")
 BENCH_QUERIES = 512           # serving_bench --queries, cut from 2048
+BENCH_REPS = 1                # serving_bench --reps, cut from 3
+DEPLOY_CYCLES = 1             # deploy cycles into a live server, cut from 2
 
 
 def check_approx_select(card: str, items) -> dict:
@@ -2193,19 +2195,21 @@ def check_reload(card: str, index, queries, work: str) -> dict:
 
 
 def check_deploy(card: str, work: str) -> dict:
-    """full_scale_run's deploy cycles at full width: 20 steps, then two
-    cycles of 10 steps, each exported, embedded, saved and reloaded into a
-    live approx server."""
+    """full_scale_run's deploy cycles at full width: 20 steps, then
+    DEPLOY_CYCLES cycles of 10 steps, each exported, embedded, saved and
+    reloaded into a live approx server."""
     from esrecsys_tpu_torch.tools import full_scale_run as fsr
 
     out_dir = os.path.join(work, "deploy")
     res = fsr.main(["--out_dir", out_dir, "--train", "--steps", "20",
-                    "--deploy_cycles", "2", "--cycle_steps", "10",
+                    "--deploy_cycles", str(DEPLOY_CYCLES),
+                    "--cycle_steps", "10",
                     "--deploy_serve_mode", "approx",
                     "--deploy_quality_queries", "64"])
     cycles = res["deploy_cycles"]
-    if len(cycles) != 2 or not all(c["probe_hit"] for c in cycles) or \
-            res["deploy_final_step"] != 40:
+    if len(cycles) != DEPLOY_CYCLES or \
+            not all(c["probe_hit"] for c in cycles) or \
+            res["deploy_final_step"] != 20 + 10 * DEPLOY_CYCLES:
         raise AssertionError(f"deploy cycles: {res}")
     for c in cycles:
         if c["overlap_at_k"] < APPROX_FLOOR:
@@ -2225,7 +2229,7 @@ def check_bench(card: str) -> dict:
 
     full_scan = [m for m in BENCH_FLOORS if m not in SUBLINEAR_MODES]
     res = sb.main(["--items", "2262292", "--dim", "64", "--k", "500",
-                   "--batch", "256", "--reps", "3",
+                   "--batch", "256", "--reps", str(BENCH_REPS),
                    "--queries", str(BENCH_QUERIES),
                    "--modes", ",".join(full_scan), "--out", ""])
     for r in res["results"]:
@@ -2233,7 +2237,8 @@ def check_bench(card: str) -> dict:
         if floor is not None and not r["overlap_vs_exact"] >= floor:
             raise AssertionError(f"serving_bench {r} under {floor}")
     log("serving_bench --items 2262292 --dim 64 --k 500 --batch 256 --reps "
-        f"3 --queries {BENCH_QUERIES} (cut from 2048): " + ", ".join(
+        f"{BENCH_REPS} --queries {BENCH_QUERIES} (cut from 2048): "
+        + ", ".join(
             f"{r['mode']} {r['queries_per_s']} q/s overlap "
             f"{r['overlap_vs_exact']} {r['resident_bytes_per_item']} B/item "
             f"setup {r['setup_s']} s" for r in res["results"])
@@ -2674,7 +2679,8 @@ def check_sublinear_bench(card: str) -> dict:
             ("max_cell_1024", ["--ivf_max_cell", "1024"],
              [m for m in SUBLINEAR_MODES if m.startswith("ivf")])):
         res = sb.main(["--items", "2262292", "--dim", "64", "--k", "500",
-                       "--batch", "256", "--reps", "3", "--structured",
+                       "--batch", "256", "--reps", str(BENCH_REPS),
+                       "--structured",
                        "--queries", str(BENCH_QUERIES),
                        "--modes", ",".join(("exact",) + tuple(modes)),
                        "--out", ""] + extra)
@@ -2685,7 +2691,8 @@ def check_sublinear_bench(card: str) -> dict:
                                      f"{floor}")
         flags = " ".join(["--structured"] + extra)
         log(f"serving_bench {flags} --items 2262292 --dim 64 --k 500 "
-            f"--batch 256 --reps 3 --queries {BENCH_QUERIES}: " + ", ".join(
+            f"--batch 256 --reps {BENCH_REPS} --queries {BENCH_QUERIES}: "
+            + ", ".join(
                 f"{r['mode']} {r['queries_per_s']} q/s overlap "
                 f"{r['overlap_vs_exact']} {r['resident_bytes_per_item']} "
                 f"B/item setup {r['setup_s']} s"
@@ -2697,17 +2704,19 @@ def check_sublinear_bench(card: str) -> dict:
 
 
 def check_sublinear_deploy(card: str, work: str) -> dict:
-    """8. Two deploy cycles of 10 steps into a live ivf_pq server that
-    reuses its centroids and codebook at each reload."""
+    """8. DEPLOY_CYCLES deploy cycles of 10 steps into a live ivf_pq
+    server that reuses its centroids and codebook at each reload."""
     from esrecsys_tpu_torch.tools import full_scale_run as fsr
 
     res = fsr.main(["--out_dir", os.path.join(work, "deploy_ivfpq"),
-                    "--train", "--steps", "20", "--deploy_cycles", "2",
+                    "--train", "--steps", "20",
+                    "--deploy_cycles", str(DEPLOY_CYCLES),
                     "--cycle_steps", "10", "--deploy_serve_mode", "ivf_pq",
                     "--deploy_reload_aux", "reuse",
                     "--deploy_quality_queries", "64"])
     cycles = res["deploy_cycles"]
-    if len(cycles) != 2 or not all(c["probe_hit"] for c in cycles):
+    if len(cycles) != DEPLOY_CYCLES or \
+            not all(c["probe_hit"] for c in cycles):
         raise AssertionError(f"ivf_pq deploy cycles: {res}")
     for c in cycles:
         log(f"deploy cycle {c['cycle']} (ivf_pq server, aux reuse, 10 steps "
@@ -3592,12 +3601,11 @@ def written_ms(fn, reps: int = 50) -> float:
     return own + lag(timed) - lag(base)
 
 
-def time_row_kernels(table, ids, upd):
-    """(gather row, scatter row) at one shape: (kernel, plain, library,
-    bound) ms each, from a cold and clean L2, write-back included
-    (``written_ms``). The bound counts the distinct rows the ids touch
-    (read once; the scatter's also written once), the ids, and the
-    float32 rows out or updates in, at the HBM rate."""
+def row_kernel_calls(table, ids, upd):
+    """The gather row's and the scatter row's calls at one shape, (kernel,
+    plain, library) each, and their bounds in ms: the distinct rows the
+    ids touch (read once; the scatter's also written once), the ids, and
+    the float32 rows out or updates in, at the HBM rate."""
     import torch
 
     from esrecsys_tpu_torch.kernels import gather_pool as gp
@@ -3609,15 +3617,22 @@ def time_row_kernels(table, ids, upd):
     g_bound = (distinct + n * 4 + n * D * 4) / HBM_BYTES_PER_S * 1e3
     s_bound = (n * D * 4 + n * 4 + 2 * distinct) / HBM_BYTES_PER_S * 1e3
     lib_upd = upd.to(table.dtype)
-    gather = tuple(written_ms(f) for f in (
-        lambda: gp.gather_pool_cuda(table, ids2, False, -1),
-        lambda: gp.gather_pool_plain(table, ids2, False, -1),
-        lambda: table.index_select(0, ids))) + (g_bound,)
-    scatter = tuple(written_ms(f) for f in (
-        lambda: sa.scatter_add_cuda(table, ids, upd),
-        lambda: sa.scatter_add_plain(table, ids, upd),
-        lambda: table.index_add_(0, ids, lib_upd))) + (s_bound,)
-    return gather, scatter
+    gather = (lambda: gp.gather_pool_cuda(table, ids2, False, -1),
+              lambda: gp.gather_pool_plain(table, ids2, False, -1),
+              lambda: table.index_select(0, ids))
+    scatter = (lambda: sa.scatter_add_cuda(table, ids, upd),
+               lambda: sa.scatter_add_plain(table, ids, upd),
+               lambda: table.index_add_(0, ids, lib_upd))
+    return gather, scatter, g_bound, s_bound
+
+
+def time_row_kernels(table, ids, upd):
+    """(gather row, scatter row) at one shape: (kernel, plain, library,
+    bound) ms each, from a cold and clean L2, write-back included
+    (``written_ms``)."""
+    gather, scatter, g_bound, s_bound = row_kernel_calls(table, ids, upd)
+    return (tuple(map(written_ms, gather)) + (g_bound,),
+            tuple(map(written_ms, scatter)) + (s_bound,))
 
 
 def timing_line(what: str, gather, scatter) -> str:
@@ -4049,14 +4064,16 @@ def phase_glove(card: str) -> dict:
 # within 1,200 s and is held to half of that, so that a host 1.3-1.6x
 # slower (seen between runs) still passes. The chain is host Python and
 # linear in pages (375-381 s at 20,000, 176.8 s at 10,000, 60-97 s at
-# 5,000, on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md); 2,500 pages leave
-# room for the stl fixtures and the mesh phase within about 600 s
-WIKI_PAGES = 2_500
+# 5,000, 66.8-91.9 s for the whole wiki phase at 1,250, on an NVIDIA H100
+# 80GB HBM3 at 700 W: PERF.md); 625 pages leave room for the stl fixtures
+# and the grown mesh phase within about 600 s on the slower hosts
+WIKI_PAGES = 625
 WIKI_LEXICON = 200_000        # distinct words, drawn Zipf(1.1) by rank
 WIKI_STEPS = 5                # GloVe and txt2url steps on the chain's output
 T2U_WORDS = 500_000           # dictionary tokens: 565,537 word rows
 T2U_URLS = 1_000_000          # title dictionary: the URL table's rows
-T2U_DOCS = 20_000             # synthetic sparse documents, 30 % short
+T2U_DOCS = 10_000             # synthetic sparse documents, 30 % short
+                              # (cut from 20,000)
 T2U_ROWS = 20_000             # url2url rows of 20 others each
 T2U_EVAL_STEPS = 16
 # K steps with the kernels against the same steps through the plain
@@ -4718,14 +4735,14 @@ def phase_wiki(card: str) -> dict:
 # the Shop-the-Look corpus: scene/product pairs of JPEGs written by the
 # port's writer (the card's machine has no other), 400 px wide and
 # 300-700 px tall so that both the crop and the pad to 512 run
-STL_PAIRS = 1024
+STL_PAIRS = 512               # cut from 1,024 (depth: the corpus)
 STL_WIDTH = 400
 STL_HEIGHTS = (300, 701)
 STL_EVAL_STEPS = 4            # eval batches of one round (cut from 16)
-STL_TIMED_STEPS = 10          # steps timed per feed
+STL_TIMED_STEPS = 5           # steps timed per feed (cut from 10)
 STL_DECODE_IMAGES = 256       # images timed through the decoder
 STL_QUERIES = 32              # image_key queries served (and 16 texts)
-STL_FUSED_BINS = 256          # 4 rows a bin over the 1,024 products
+STL_FUSED_BINS = 256          # 2 rows a bin over the 512 products
 # the towers on the card against the same weights in float64 on the CPU,
 # relative to the largest float64 output: float32 (TF32 off) sums in
 # another order, 1e-6 seen on the CPU; bf16 keeps 8 bits at each of some
@@ -5113,9 +5130,9 @@ def stl_fetch_local(card: str, stl_json: str, img_dir: str, root: str,
 
 def stl_subprocesses(card: str, cfg, here: str, root: str, paths) -> dict:
     """The STL CLI (``--mode index`` then ``--mode recommend``) on the
-    trained artifact in a fresh work dir, and ``random_recommender``, each
-    as a subprocess: the CLI's indexes equal the in-process ones (1e-5),
-    and so do its pages' ids."""
+    trained artifact in a fresh work dir, and ``random_recommender`` beside
+    them, each as a subprocess: the CLI's indexes equal the in-process ones
+    (1e-5), and so do its pages' ids."""
     import shutil
 
     import numpy as np
@@ -5129,51 +5146,59 @@ def stl_subprocesses(card: str, cfg, here: str, root: str, paths) -> dict:
              "--work_dir", wd]
     env = {**os.environ, "PYTHONPATH": here}
     took = {}
-    for mode in ("index", "recommend"):
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "esrecsys_tpu_torch.workloads.stl",
-             "--mode", mode, *flags], cwd=here, capture_output=True,
-            text=True, timeout=600, env=env)
-        took[mode] = time.perf_counter() - t0
-        if out.returncode != 0:
-            raise AssertionError(f"stl CLI {mode} exit {out.returncode}: "
-                                 f"{out.stderr[-3000:]}")
-    for name in ("scene", "product"):
-        a = EmbeddingIndex.load(paths[name])
-        b = EmbeddingIndex.load(os.path.join(wd, f"{name}_index.npz"))
-        if a.ids != b.ids or not np.allclose(a.vectors, b.vectors, rtol=0,
-                                             atol=1e-5):
-            raise AssertionError(f"the CLI's {name} index differs")
-    ours = sorted(os.listdir(os.path.join(cfg.work_dir, "recommendations")))
-    theirs = sorted(os.listdir(os.path.join(wd, "recommendations")))
-    row = re.compile(r"<td>([0-9a-f]+)</td>")
-    for name in ours:
-        with open(os.path.join(cfg.work_dir, "recommendations", name)) as f, \
-                open(os.path.join(wd, "recommendations", name)) as g:
-            if row.findall(f.read()) != row.findall(g.read()):
-                raise AssertionError(f"the CLI's page {name} differs")
-    if ours != theirs:
-        raise AssertionError("the CLI wrote other pages")
+    # random_recommender needs nothing of the CLI's: it runs beside it
     html_path = os.path.join(root, "random.html")
-    t0 = time.perf_counter()
-    out = subprocess.run(
+    t_random = time.perf_counter()
+    random_rec = subprocess.Popen(
         [sys.executable, "-m", "esrecsys_tpu_torch.tools.random_recommender",
          "--stl_json", cfg.stl_json, "--output_html", html_path,
-         "--num_items", "20"], cwd=here, capture_output=True, text=True,
-        timeout=300, env=env)
-    took["random_recommender"] = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"random_recommender exit {out.returncode}: "
-                             f"{out.stderr[-3000:]}")
+         "--num_items", "20"], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        for mode in ("index", "recommend"):
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "esrecsys_tpu_torch.workloads.stl",
+                 "--mode", mode, *flags], cwd=here, capture_output=True,
+                text=True, timeout=600, env=env)
+            took[mode] = time.perf_counter() - t0
+            if out.returncode != 0:
+                raise AssertionError(f"stl CLI {mode} exit {out.returncode}: "
+                                     f"{out.stderr[-3000:]}")
+        for name in ("scene", "product"):
+            a = EmbeddingIndex.load(paths[name])
+            b = EmbeddingIndex.load(os.path.join(wd, f"{name}_index.npz"))
+            if a.ids != b.ids or not np.allclose(a.vectors, b.vectors, rtol=0,
+                                                 atol=1e-5):
+                raise AssertionError(f"the CLI's {name} index differs")
+        pages = os.path.join(cfg.work_dir, "recommendations")
+        ours = sorted(os.listdir(pages))
+        theirs = sorted(os.listdir(os.path.join(wd, "recommendations")))
+        row = re.compile(r"<td>([0-9a-f]+)</td>")
+        for name in ours:
+            with open(os.path.join(pages, name)) as f, \
+                    open(os.path.join(wd, "recommendations", name)) as g:
+                if row.findall(f.read()) != row.findall(g.read()):
+                    raise AssertionError(f"the CLI's page {name} differs")
+        if ours != theirs:
+            raise AssertionError("the CLI wrote other pages")
+        out = random_rec.communicate(timeout=300)
+    finally:  # the script stops every process it starts
+        if random_rec.poll() is None:
+            random_rec.kill()
+            random_rec.wait()
+    took["random_recommender"] = time.perf_counter() - t_random
+    if random_rec.returncode != 0:
+        raise AssertionError(f"random_recommender exit "
+                             f"{random_rec.returncode}: {out[1][-3000:]}")
     with open(html_path) as f:
         rows = row.findall(f.read())
     if len(rows) != 20:
         raise AssertionError(f"random_recommender wrote {len(rows)} rows")
     log(f"stl subprocesses: CLI index {took['index']:.1f} s and recommend "
         f"{took['recommend']:.1f} s equal to the in-process run; "
-        f"random_recommender {took['random_recommender']:.1f} s, 20 rows "
-        f"[{card}]")
+        f"random_recommender beside them, {took['random_recommender']:.1f} "
+        f"s to its end, 20 rows [{card}]")
     return took
 
 
@@ -5533,16 +5558,457 @@ def mesh_first_step(cfg, corpus, batch, model_u, state_u, model_s, state_s,
 
 MESH_STEPS = 20               # sharded steps against unsharded ones
 MESH_PROFILED = 5             # sharded steps under torch.profiler
+MESH_SERVE_MODES = (          # the catalog-sharded serving modes
+    ("exact", {}), ("int8", {"quantized": True}),
+    ("int8+r8", {"quantized": True, "rescore_int8": True}),
+    ("fused:bins=4096", {"fused": True, "fused_bins": 4096}))
+MESH_WORKLOAD_STEPS = 5       # GloVe, txt2url and STL steps on the mesh
+MESH_SHARDS = 4               # the shard count of the kernels' shard shapes
 
 
-def phase_mesh(card: str) -> dict:
-    """The playlist's sharded code on a 1x1 mesh of one NCCL rank at the
-    flagship's full width: one step's scatter inputs bit for bit, 20
-    sharded steps against 20 unsharded ones (and two unsharded runs
-    against each other), the sharded eval against the exact one, their
-    host times, and the collectives' share of the sharded step's device
-    time. The launch counts are read around the sharded steps and the
-    sharded eval."""
+def counted(fn, total: dict):
+    """``fn()``, its kernel launches added into ``total`` (the counts set
+    to 0 just before it and read just after)."""
+    import torch
+
+    _reset_all_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    for k, v in _all_launches().items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+def timed_steps(step, state, batches, launches: dict) -> tuple:
+    """Each batch through ``step`` from ``state``, the kernels' launches
+    added into ``launches``: (the losses as floats, host ms a step over
+    every step but the first, which builds the kernels and, on a mesh,
+    sets up NCCL's communicators)."""
+    import torch
+
+    losses = []
+
+    def run():
+        for i, b in enumerate(batches):
+            losses.append(float(step(state, b)[1]["loss"]))
+            if i == 0:
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+
+    return losses, counted(run, launches)
+
+
+def top_against_plain(items, queries, got, valid: int, what: str) -> bool:
+    """A sharded top-k ``got`` (scores, rows) over the table ``items``
+    against the plain top-k of the same table (``queries @ items.T`` over
+    its first ``valid`` rows), ``equal_up_to_ties``. Raises on a
+    difference; returns whether the ids are equal outright."""
+    import torch
+
+    def host(t):
+        return t.detach().cpu().numpy() if torch.is_tensor(t) else t
+
+    scores, rows = host(got[0]), host(got[1])
+    with torch.no_grad():
+        top, idx = torch.topk(queries @ items[:valid].T, rows.shape[-1])
+    equal_up_to_ties(items, host(queries), (rows, scores),
+                     (idx.cpu().numpy(), top.cpu().numpy()), what)
+    return bool((rows == idx.cpu().numpy()).all())
+
+
+def mesh_serving(card: str, index, queries) -> dict:
+    """The trained catalog served catalog-sharded on the one-rank mesh in
+    the four modes, each against the unsharded service of the same mode:
+    ids and scores equal (one shard scans the catalog as the unsharded
+    service does, and the exchange of one rank keeps its order); host ms
+    per B=8 call of each."""
+    import numpy as np
+
+    from esrecsys_tpu_torch.serving.server import RetrievalService
+
+    q = queries[:8]
+    out, launches = {}, {}
+    for name, kw in MESH_SERVE_MODES:
+        plain = RetrievalService(index, max_k=500, max_batch=8,
+                                 device="cuda", **kw)
+        want = plain.topk(q, k=500)
+        plain_ms = host_ms(lambda: plain.topk(q, k=500), 20)
+        del plain
+        svc = counted(lambda: RetrievalService(
+            index, max_k=500, max_batch=8, n_model_shards=1, device="cuda",
+            **kw), launches)
+        got = counted(lambda: svc.topk(q, k=500), launches)
+        ms = counted(lambda: host_ms(lambda: svc.topk(q, k=500), 20),
+                     launches)
+        mode, per_item = svc.mode, svc.resident_bytes_per_item
+        svc.stop_shards()
+        del svc
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"sharded {name} differs from the "
+                                 f"unsharded service")
+        out[name] = {"ms": ms, "unsharded_ms": plain_ms}
+        log(f"mesh serving {mode} (one NCCL rank) over {len(index)} x "
+            f"{index.vectors.shape[1]}, B=8, k=500: ids and scores equal "
+            f"to the unsharded service; {ms:.3f} ms a call against "
+            f"{plain_ms:.3f} unsharded (host clock, median of 20), "
+            f"{per_item} B/item [{card}]")
+    out["launches"] = launches
+    return out
+
+
+def diff_share(a, b, rows=None):
+    """(max abs diff, share of elements over 1e-6) of two tensors, over
+    ``rows`` only when given."""
+    a, b = a.detach(), b.detach()
+    if rows is not None:
+        a, b = a[rows], b[rows]
+    d = (a.float() - b.float()).abs()
+    return float(d.max()), float((d > 1e-6).double().mean())
+
+
+def mesh_glove(card: str, mesh) -> dict:
+    """GloVe at its full width (565,632 x 64, B=2048) under both
+    optimizers: MESH_WORKLOAD_STEPS sharded steps on the one-rank mesh
+    against as many unsharded steps from one init, held as the glove
+    phase holds the kernels against their plain versions (the scatter's
+    atomics sum duplicate rows in a run-dependent order)."""
+    import numpy as np
+
+    import torch
+
+    from esrecsys_tpu_torch.workloads import glove as gl
+
+    rows = GLOVE_VOCAB + 65_537
+    gen = np.random.default_rng(41)
+    dev = torch.device("cuda", 0)
+    batches = []
+    for _ in range(MESH_WORKLOAD_STEPS):
+        t = gen.zipf(1.3, (2, 2048)) % (rows - 1) + 1
+        count = gen.integers(1, 300, 2048).astype(np.float32)
+        batches.append(gl.to_device(((t[0].astype(np.int32),
+                                      t[1].astype(np.int32)), count), dev))
+    touched = torch.unique(torch.cat([x for (pair, _) in batches
+                                      for x in pair]).long())
+    out, launches = {}, {}
+    for opt in ("adam", "lazy_adam"):
+        cfg = gl.GloveConfig(optimizer=opt)
+        runs = []
+        for m in (None, mesh):
+            model, state = gl.init_state(cfg, rows, "cuda", mesh=m)
+            runs.append((state, *timed_steps(
+                gl.select_train_step(model, cfg), state, batches,
+                launches if m is not None else {})))
+        (su, lu, ms_u), (ss, ls, ms_s) = runs
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lu))
+        diffs = {n: diff_share(getattr(ss.params, n).embedding,
+                               getattr(su.params, n).embedding, touched)
+                 for n in gl.TABLES}
+        if rel > GLOVE_LOSS_RTOL or any(v[1] > GLOVE_DIFF_SHARE
+                                        for v in diffs.values()):
+            raise AssertionError(f"glove {opt} on the mesh: loss rel {rel}, "
+                                 f"diffs {diffs}")
+        probe = torch.tensor([1, 2, 3], device=dev)
+        table = ss.params.token_embedding.embedding
+        knn_equal = top_against_plain(
+            table, table[probe], gl.knn(ss, probe, 10, valid_rows=rows),
+            rows, f"glove {opt}: the sharded knn")
+        out[opt] = {"ms": ms_s, "unsharded_ms": ms_u, "loss_rel": rel}
+        log(f"mesh glove {opt} (565,632 x 64, B=2048, one NCCL rank): "
+            f"{MESH_WORKLOAD_STEPS} sharded steps against unsharded from "
+            f"one init: loss max rel {rel:.3g} (bound {GLOVE_LOSS_RTOL}); "
+            + ", ".join(f"{k} max abs diff {v[0]:.3g}, share over 1e-6 "
+                        f"{v[1]:.3g}" for k, v in diffs.items())
+            + f" over the {touched.numel()} touched rows (bound "
+            f"{GLOVE_DIFF_SHARE}); the sharded knn against the plain top-10 "
+            f"of its table: equal up to tied scores (ids equal outright "
+            f"{knn_equal}); host {ms_s:.3f} ms a step sharded, {ms_u:.3f} "
+            f"unsharded, first step left out [{card}]")
+    return {"runs": out, "launches": launches,
+            "ids": torch.cat(batches[0][0]).to(torch.int32)}
+
+
+def mesh_txt2url(card: str, mesh) -> dict:
+    """txt2url at the reference's width (565,537 word and 1,000,000 URL
+    rows, B=64, L=32, LSTM, margin): MESH_WORKLOAD_STEPS sharded steps on
+    the one-rank mesh against unsharded ones from one init (the bounds of
+    the wiki phase's kernel-against-plain checks), and the sharded
+    recall@10 top-k over all URLs against the unsharded one."""
+    import numpy as np
+
+    import torch
+
+    from esrecsys_tpu_torch.workloads import txt2url as t2u
+
+    words, urls = GLOVE_VOCAB + 65_537, 1_000_000
+    cfg = t2u.Txt2UrlConfig()
+    gen = np.random.default_rng(43)
+    dev = torch.device("cuda", 0)
+    batches = []
+    for _ in range(MESH_WORKLOAD_STEPS):
+        tok = (gen.zipf(1.2, (64, 32)) % (words - 1) + 1).astype(np.int32)
+        lengths = gen.integers(1, 33, 64)
+        tok[np.arange(32)[None, :] >= lengths[:, None]] = 0
+        batches.append(t2u.to_device({
+            "url_near_text": gen.integers(0, urls, 64).astype(np.int32),
+            "tokens": tok,
+            "url1": gen.integers(0, urls, 64).astype(np.int32),
+            "url2": gen.integers(0, urls, 64).astype(np.int32),
+            "sqrt_dice": gen.random(64).astype(np.float32)}, dev))
+    runs, launches = [], {}
+    for m in (None, mesh):
+        model, state = t2u.init_state(cfg, words, urls, "cuda", mesh=m)
+        runs.append((model, *timed_steps(t2u.make_train_step(model, cfg),
+                                         state, batches,
+                                         launches if m is not None else {})))
+    (mu, lu, ms_u), (ms_, ls, ms_s) = runs
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lu))
+    pu, ps = dict(mu.named_parameters()), dict(ms_.named_parameters())
+    over = total = 0
+    worst = 0.0
+    for name, a in pu.items():
+        d, share = diff_share(ps[name], a)
+        worst = max(worst, d)
+        over += share * a.numel()
+        total += a.numel()
+    share = over / total
+    if rel > T2U_LOSS_RTOL or share > T2U_DIFF_SHARE:
+        raise AssertionError(f"txt2url on the mesh: loss rel {rel}, share "
+                             f"{share}")
+    with torch.no_grad():
+        enc = ms_.encoder(batches[0]["tokens"])
+        ids_equal = top_against_plain(
+            ms_.url_embedding.embedding, enc,
+            t2u.top_rows(ms_.url_embedding, enc, 10),
+            ms_.url_embedding.num_embeddings,
+            "txt2url: the sharded top-10 over all URLs")
+    log(f"mesh txt2url (565,537 and 1,000,000 x 64, B=64, LSTM, one NCCL "
+        f"rank): {MESH_WORKLOAD_STEPS} sharded steps against unsharded "
+        f"from one init: loss max rel {rel:.3g} (bound {T2U_LOSS_RTOL}); "
+        f"max abs diff {worst:.3g}, share over 1e-6 {share:.3g} (bound "
+        f"{T2U_DIFF_SHARE}); the sharded top-10 over all URLs against the "
+        f"plain top-10 of its table: equal up to tied scores (ids equal "
+        f"outright {ids_equal}); host {ms_s:.3f} ms a step sharded, "
+        f"{ms_u:.3f} unsharded, first step left out [{card}]")
+    return {"ms": ms_s, "unsharded_ms": ms_u, "loss_rel": rel,
+            "launches": launches}
+
+
+def mesh_stl(card: str) -> dict:
+    """STL at STLConfig's width (512 px, B=16 triplets, bf16 towers) for
+    MESH_WORKLOAD_STEPS steps on a one-rank data mesh against as many
+    unsharded steps from one init: bit-equal (each collective of one rank
+    is the identity), cuDNN held to deterministic algorithms for the
+    comparison."""
+    import torch
+
+    from esrecsys_tpu_torch.core import mesh as mesh_lib
+    from esrecsys_tpu_torch.workloads import stl
+
+    cfg = stl.STLConfig()
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    batches = [tuple(torch.randn((16, 512, 512, 3), generator=gen,
+                                 device="cuda") * 0.3 for _ in range(3))
+               for _ in range(MESH_WORKLOAD_STEPS)]
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        mesh = mesh_lib.make_mesh_for_batch(cfg.batch_size)
+        runs, launches = [], {}
+        for m in (None, mesh):
+            model, state = stl.init_state(cfg, "cuda", mesh=m)
+            runs.append((state, *timed_steps(
+                stl.make_train_step(model, cfg), state, batches,
+                launches if m is not None else {})))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    (su, lu, ms_u), (ss, ls, ms_s) = runs
+    bad = [k for k, v in su.params.state_dict().items()
+           if not torch.equal(v, ss.params.state_dict()[k])]
+    bad += [f"{k}/{n}" for k in ("mu", "nu")
+            for n, v in su.opt_state[k].items()
+            if not torch.equal(v, ss.opt_state[k][n])]
+    if bad or lu != ls:
+        raise AssertionError(f"stl on a one-rank data mesh differs: {bad}")
+    log(f"mesh stl (512 px, B=16, bf16, one NCCL rank, data mesh "
+        f"{mesh.n_data}x{mesh.n_model}): {MESH_WORKLOAD_STEPS} steps "
+        f"bit-equal to the unsharded steps (params, BatchNorm statistics, "
+        f"Adam moments, losses); host {ms_s:.1f} ms a step sharded, "
+        f"{ms_u:.1f} unsharded (deterministic cuDNN), first step left "
+        f"out [{card}]")
+    return {"ms": ms_s, "unsharded_ms": ms_u, "launches": launches}
+
+
+def mesh_dense_playlist(card: str, mesh, run, corpus, batches) -> dict:
+    """The playlist's dense autograd step at the flagship's width on the
+    one-rank mesh: MESH_STEPS sharded steps against as many unsharded
+    ones from one init, held to the train phase's bounds."""
+    import torch
+
+    from esrecsys_tpu_torch.tools import full_scale_run as fsr
+    from esrecsys_tpu_torch.workloads import playlist as pl
+
+    cfg = dataclasses.replace(fsr.flagship_cfg(run), sparse_updates=False)
+    runs, launches = [], {}
+    for m in (None, mesh):
+        model, state = pl.init_state(cfg, "cuda", mesh=m)
+        runs.append((state, *timed_steps(
+            pl.select_train_step(model, cfg, corpus, cfg.seed, mesh=m),
+            state, batches[:MESH_STEPS], launches if m is not None else {})))
+    (su, lu, ms_u), (ss, ls, ms_s) = runs
+    diffs = {}
+    for name in ("album_embed", "artist_embed"):
+        pu = getattr(su.params, name).embedding
+        ps = getattr(ss.params, name).embedding
+        diffs[f"{name} table"] = diff_share(ps, pu)
+        diffs[f"{name} momentum"] = diff_share(
+            ss.opt_state.state[ps]["momentum_buffer"],
+            su.opt_state.state[pu]["momentum_buffer"])
+    for name, (d, share) in diffs.items():
+        atol = TRAIN_TABLE_ATOL if "table" in name else TRAIN_MOMENTUM_ATOL
+        if d > atol or share > TRAIN_DIFF_SHARE:
+            raise AssertionError(f"dense step on the mesh: {name} {d} "
+                                 f"{share}")
+    ls, lu = torch.tensor(ls), torch.tensor(lu)
+    rel = float(((ls - lu).abs() / lu.abs()).max())
+    if not torch.isfinite(ls).all() or rel > 1e-5:
+        raise AssertionError(f"dense step losses {ls} against {lu}")
+    log(f"mesh dense step (the flagship's width, B=2048, SGD momentum "
+        f"0.98, one NCCL rank): {MESH_STEPS} sharded steps against "
+        f"unsharded from one init: loss max rel {rel:.3g}; "
+        + ", ".join(f"{k} {v[0]:.3g} ({v[1]:.2e})" for k, v in diffs.items())
+        + f"; host {ms_s:.3f} ms a step sharded, {ms_u:.3f} unsharded, "
+        f"first step left out [{card}]")
+    return {"ms": ms_s, "unsharded_ms": ms_u, "diffs": diffs,
+            "launches": launches}
+
+
+def shard_rows_against_plain(card: str, what: str, table, ids, upd):
+    """The row kernels at a shard's shape and a step's local ids (-1 where
+    another shard owns the row) against their plain versions: the gather
+    bit-equal, the scatter-add within TOL and no row outside the ids
+    touched; then their device times at the shard's owned ids (the
+    library calls take no -1) with the L2 flushed. Returns (errs,
+    times)."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+
+    ids2 = ids[:, None].contiguous()
+    gk = gp.gather_pool_cuda(table, ids2, False, -1)
+    gplain = gp.gather_pool_plain(table, ids2, False, -1)
+    k, p = table.clone(), table.clone()
+    sa.scatter_add_cuda(k, ids, upd)
+    sa.scatter_add_plain(p, ids, upd)
+    torch.cuda.synchronize()
+    if not torch.equal(gk, gplain):
+        raise AssertionError(f"{what}: gather_pool differs")
+    torch.testing.assert_close(k, p, rtol=TOL, atol=TOL)
+    own = ids >= 0
+    hit = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
+    hit[ids[own].long()] = True
+    if not torch.equal(k[~hit], table[~hit]):
+        raise AssertionError(f"{what}: scatter_add changed rows no id "
+                             f"touches")
+    s_err = float((k - p).abs().max())
+    del k, p
+    # device time with the L2 flushed before each call (cold_ms): at a
+    # few hundred ids written_ms's write-back lag is within its noise
+    g_calls, s_calls, g_bound, s_bound = row_kernel_calls(
+        table, ids[own].contiguous(), upd[own].contiguous())
+    gather = tuple(map(cold_ms, g_calls)) + (g_bound,)
+    scatter = tuple(map(cold_ms, s_calls)) + (s_bound,)
+    log(f"{what} ({tuple(table.shape)} shard, {ids.shape[0]} local ids, "
+        f"{int((~own).sum())} of them -1): gather_pool bit-equal to plain, "
+        f"scatter_add max_abs_err {s_err:.3g}; "
+        + timing_line("at the owned ids", gather, scatter) + f" [{card}]")
+    return {"gather_pool": 0.0, "scatter_add": s_err}, {
+        "gather_pool": gather, "scatter_add": scatter}
+
+
+def mesh_shard_kernels(card: str, index, glove_ids) -> dict:
+    """The three kernels of the path at their shard shapes against their
+    plain versions: fused_scan on the (64, rps) slices of the trained
+    catalog cut into MESH_SHARDS shards at L=4096 (the first, and the
+    last with its valid bound), gather_pool and scatter_add on shard 0 of
+    GloVe's table cut in two (the GloVe check's ids, made local) and of
+    txt2url's 1,000,000-row URL table cut in two (192 ids)."""
+    import numpy as np
+
+    import torch
+
+    from esrecsys_tpu_torch.kernels.fused_scan import (fused_scan_cuda,
+                                                       fused_scan_plain)
+    from esrecsys_tpu_torch.retrieval.fused import pack_catalog
+
+    L, B = 4096, 8
+    n = len(index)
+    padded = -(-n // (MESH_SHARDS * L)) * MESH_SHARDS * L
+    rps = padded // MESH_SHARDS
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    D = index.vectors.shape[1]
+    q = torch.randn(B, D, generator=gen, device="cuda").to(torch.bfloat16)
+    errs, out = {"fused_scan": 0.0}, {}
+    for j in (0, MESH_SHARDS - 1):
+        rows = np.zeros((rps, D), np.float32)
+        part = index.vectors[j * rps:min((j + 1) * rps, n)]
+        rows[:part.shape[0]] = part
+        packed = pack_catalog(torch.from_numpy(rows).to("cuda"), L)
+        bound = max(0, min(n - j * rps, rps))
+        kv, ki = fused_scan_cuda(q, packed, L, bound)
+        pv, pi = fused_scan_plain(q, packed, L, bound)
+        torch.cuda.synchronize()
+        err, ties, _ = compare_candidates(q, packed, kv, ki, pv, pi)
+        errs["fused_scan"] = max(errs["fused_scan"], err)
+        if j == 0:
+            ms = cuda_ms(lambda: fused_scan_cuda(q, packed, L, bound), 50)
+            plain_ms = cuda_ms(lambda: fused_scan_plain(q, packed, L, bound),
+                               3, warmup=1)
+            nbytes = D * rps * 2 + B * D * 2 + B * 2 * L * 8
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            out["fused_scan"] = {"ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": "bytes",
+                                 "library_ms": None}
+        log(f"kernel fused_scan at shard {j} of {MESH_SHARDS} ((64, {rps}) "
+            f"slice, L={L}, B={B}, valid bound {bound}): ok, max_abs_err "
+            f"{err:.3g}, near-tie id slots {ties}" + (
+                f"; {ms:.4f} ms (plain {plain_ms:.3f}, byte bound "
+                f"{bound_ms:.4f}) [{card}]" if j == 0 else f" [{card}]"))
+        del packed
+    for name, rows, ids in (
+            ("glove shard", GLOVE_VOCAB + 65_537 + 95, glove_ids),
+            ("txt2url URL shard", 1_000_000, torch.randint(
+                0, 1_000_000, (192,), generator=gen, device="cuda"))):
+        per = rows // 2
+        table = torch.randn((per, 64), generator=gen, device="cuda")
+        local = torch.where(ids < per, ids, -1).to(torch.int32)
+        upd = torch.randn((local.shape[0], 64), generator=gen,
+                          device="cuda")
+        e, t = shard_rows_against_plain(card, f"mesh {name}", table, local,
+                                        upd)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        out[name] = t
+        del table
+    return {"errs": errs, "timed": out, "rps": rps}
+
+
+def phase_mesh(card: str, serve_ctx: dict) -> dict:
+    """The port's sharded code on a 1x1 mesh of one NCCL rank at full
+    width: the playlist's sparse step (one step's scatter inputs bit for
+    bit, 20 sharded steps against 20 unsharded ones, and two unsharded
+    runs against each other), the sharded eval against the exact one,
+    their host times, and the collectives' share of the sharded step's
+    device time; then the trained catalog served sharded in four modes,
+    GloVe and txt2url 5 steps each, STL 5 steps on a data mesh, the dense
+    playlist step 20 steps, each against its unsharded twin; then the
+    path's three kernels at their shard shapes against their plain
+    versions. The launch counts are read around each main-path run."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -5698,8 +6164,37 @@ def phase_mesh(card: str) -> dict:
                 f"a group of one rank); largest "
                 f"{[(n[:60], round(v, 4)) for n, v in top[:6]]} [{card}]")
             out.update(wall_ms=wall, busy_ms=busy, collective_ms=coll)
-            out["launches"] = {k: step_launches[k] + eval_launches[k]
-                               for k in step_launches}
+            launches = {k: step_launches[k] + eval_launches[k]
+                        for k in step_launches}
+            del state_u, state_s, model_u, model_s
+
+            # ---- the second half: serving and the other workloads
+            paths = {}
+            for name, fn, args in (
+                    ("serving", mesh_serving,
+                     (serve_ctx["index"], serve_ctx["queries"])),
+                    ("glove", mesh_glove, (mesh,)),
+                    ("txt2url", mesh_txt2url, (mesh,)),
+                    ("stl", mesh_stl, ()),
+                    ("dense", mesh_dense_playlist,
+                     (mesh, run, corpus, batches))):
+                # each path counts the launches of its sharded runs only
+                paths[name] = fn(card, *args)
+                for k, v in paths[name]["launches"].items():
+                    launches[k] += v
+            for name, kernels in (("serving", ("fused_scan",)),
+                                  ("glove", ("gather_pool", "scatter_add")),
+                                  ("txt2url", ("gather_pool",
+                                               "scatter_add")),
+                                  ("dense", ("gather_pool", "scatter_add"))):
+                for k in kernels:
+                    if paths[name]["launches"].get(k, 0) <= 0:
+                        raise AssertionError(f"mesh {name} never launched "
+                                             f"{k}")
+            out["shards"] = mesh_shard_kernels(
+                card, serve_ctx["index"], paths["glove"].pop("ids"))
+            out["paths"] = paths
+            out["launches"] = launches
         finally:
             dist.destroy_process_group()
     return out
@@ -5794,6 +6289,7 @@ def main() -> int:
             int8_res = timed("int8", phase_int8, card, ctx)
             modes_res = timed("modes", phase_modes, card, ctx, work)
             sub_res = timed("sublinear", phase_sublinear, card, ctx, work)
+            serve_ctx = {"index": ctx["index"], "queries": ctx["queries"]}
             del ctx
         tool_res = timed("tool", phase_tool, card)
         lazy_res = timed("lazy", phase_lazy, card, train_res)
@@ -5801,7 +6297,8 @@ def main() -> int:
         glove_res = timed("glove", phase_glove, card)
         wiki_res = timed("wiki", phase_wiki, card)
         stl_res = timed("stl", phase_stl, card)
-        mesh_res = timed("mesh", phase_mesh, card)
+        mesh_res = timed("mesh", phase_mesh, card, serve_ctx)
+        del serve_ctx
         log(f"seconds per phase: {spent}")
     except Exception:
         traceback.print_exc()
@@ -5816,11 +6313,15 @@ def main() -> int:
         "replaces": "esrecsys_tpu/retrieval/fused.py:191",
         "launches": main_res["launches"]
         + modes_res["launches"]["fused_scan"]
-        + stl_res["launches"]["fused_scan"],
-        "max_abs_err": max(max_err, stl_res["errs"]["fused_scan"]),
+        + stl_res["launches"]["fused_scan"]
+        + mesh_res["launches"]["fused_scan"],
+        "max_abs_err": max(max_err, stl_res["errs"]["fused_scan"],
+                           mesh_res["shards"]["errs"]["fused_scan"]),
         "ms": main_res["ms"], "plain_ms": main_res["plain_ms"],
         "bound_ms": main_res["bound_ms"], "bound_by": main_res["bound_by"],
-        "library_ms": None}]
+        "library_ms": None,
+        "shard_shape": {"rps": mesh_res["shards"]["rps"],
+                        **mesh_res["shards"]["timed"]["fused_scan"]}}]
     new_paths, new_launches = new_path_instantiations(bf16_res, glove_res,
                                                       g_err, s_err)
     for name, replaces in (
@@ -5845,6 +6346,7 @@ def main() -> int:
             + mesh_res["launches"][name],
             "max_abs_err": max(
                 r["max_abs_err"], stl_res["errs"].get(name, 0.0),
+                mesh_res["shards"]["errs"].get(name, 0.0),
                 *((e[wiki_err] for e in wiki_res["errs"].values())
                   if wiki_err is not None else ())),
             "ms": r["ms"],
@@ -5852,6 +6354,13 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         if inst:
             row["instantiations"] = inst
+        if name in ("gather_pool", "scatter_add"):
+            # at the mesh's shard shapes (GloVe's and the URL table's)
+            row["shard_shapes"] = {
+                what: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                               t[name]), bound_by="bytes")
+                for what, t in mesh_res["shards"]["timed"].items()
+                if what != "fused_scan"}
         if wiki_err is not None:
             # the txt2url step's shapes (the wiki phase): f32x4 / f32_d64
             row["txt2url_shapes"] = {

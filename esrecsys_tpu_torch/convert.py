@@ -11,8 +11,11 @@ module names mirror the reference's (``Glove``'s ``token_embedding`` and
 ``OptimizedLSTMCell`` does, kernels ``(in, out)`` both sides). Train
 states cross with their optimizer state: the playlist's momentum
 carriers and SGD trace, GloVe's optax Adam state or LazyAdam moments,
-txt2url's RMSprop ``nu``; a playlist state from a JAX mesh becomes a
-rank's sharded state (:func:`sharded_state_from_jax`). The Shop-the-Look
+txt2url's RMSprop ``nu``; a state from a JAX mesh becomes a rank's
+sharded state (:func:`sharded_state_from_jax`,
+:func:`sharded_glove_state_from_jax`,
+:func:`sharded_txt2url_state_from_jax`: the whole tables cut by
+``Mesh.row_range``). The Shop-the-Look
 towers cross through their
 own functions (``stl_*``): their conv and Dense kernels are transposed
 between flax's layouts and PyTorch's, and their BatchNorm running
@@ -147,31 +150,86 @@ def state_from_jax(jax_state, cfg, device=None):
     return state
 
 
+def _rows_of(arr, mesh, sharded: bool = True) -> torch.Tensor:
+    """A whole array (``np.asarray`` gathers a JAX one) -> this rank's
+    rows of it (``Mesh.row_range``), or all of it for a replicated
+    leaf."""
+    arr = torch.from_numpy(np.array(arr))
+    if not sharded:
+        return arr
+    rows = mesh.row_range(arr.shape[0])
+    return arr[rows.start:rows.stop]
+
+
+def _copy_params(model, full: Mapping[str, torch.Tensor], mesh) -> None:
+    """Each parameter from the whole ``full`` tensors: a sharded
+    ``TableEmbed``'s rows of this rank, the rest whole."""
+    from esrecsys_tpu_torch.models.layers import TableEmbed
+
+    sharded = {f"{n}.embedding" if n else "embedding"
+               for n, m in model.named_modules()
+               if isinstance(m, TableEmbed) and m.mesh is not None}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(_rows_of(full[name], mesh, name in sharded))
+
+
 def sharded_state_from_jax(jax_state, cfg, mesh, device=None):
-    """A JAX playlist ``TrainState`` of the row-sparse step, from a mesh
-    of any shape (its arrays are read whole, ``np.asarray`` gathering
-    them), -> this rank's sharded port state on ``mesh``: each table's and
-    each momentum buffer's (and ``last_step``'s) rows of this rank's
-    shard, and ``step``. Both packages pad the tables to the same rows
-    (a multiple of 128 and of the model axis), so the shards line up."""
+    """A JAX playlist ``TrainState``, from a mesh of any shape (its arrays
+    are read whole, ``np.asarray`` gathering them), -> this rank's sharded
+    port state on ``mesh``: each table's and each momentum buffer's (and
+    ``last_step``'s) rows of this rank's shard, and ``step``; for the
+    dense step the optax trace's rows become the SGD momentum buffers of
+    the shards. Both packages pad the tables to the same rows (a multiple
+    of 128 and of the model axis), so the shards line up."""
     from esrecsys_tpu_torch.workloads.playlist import init_state
 
     model, state = init_state(cfg, device, mesh=mesh)
-    full = params_from_jax(jax_state.params)
-
-    def mine(arr) -> torch.Tensor:
-        arr = torch.from_numpy(np.array(arr))
-        rows = mesh.row_range(arr.shape[0])
-        return arr[rows.start:rows.stop]
-
+    _copy_params(model, params_from_jax(jax_state.params), mesh)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            p.copy_(mine(full[name]))
         if cfg.sparse_updates and cfg.momentum:
             for table in ("album", "artist"):
                 for key, t in state.opt_state[table].items():
-                    t.copy_(mine(jax_state.opt_state[table][key]))
+                    t.copy_(_rows_of(jax_state.opt_state[table][key], mesh))
+        elif not cfg.sparse_updates and cfg.momentum:
+            trace = _optax_trace(jax_state.opt_state)
+            if trace is not None:
+                bufs = params_from_jax(trace)
+                for name, p in model.named_parameters():
+                    state.opt_state.state[p]["momentum_buffer"] = (
+                        _rows_of(bufs[name], mesh).to(p.device).clone())
     state.step = int(np.asarray(jax_state.step))
+    return state
+
+
+def sharded_glove_state_from_jax(jax_state, cfg, num_embeddings: int, mesh,
+                                 device=None):
+    """:func:`glove_state_from_jax` for this rank of ``mesh``: the tables'
+    and the optimizer state's rows of its shard (the JAX state read
+    whole, from a mesh of any shape)."""
+    from esrecsys_tpu_torch.workloads.glove import TABLES, init_state
+
+    model, state = init_state(cfg, num_embeddings, device, mesh=mesh)
+    _copy_params(model, params_from_jax(jax_state.params), mesh)
+    state.step = int(np.asarray(jax_state.step))
+    with torch.no_grad():
+        if cfg.optimizer == "lazy_adam":
+            for key, moments in state.opt_state.items():
+                for m, t in moments.items():
+                    t.copy_(_rows_of(jax_state.opt_state[key][m], mesh))
+            return state
+        adam = _optax_adam(jax_state.opt_state)
+        if adam is None:
+            raise ValueError("the JAX state holds no optax Adam state")
+        count, mu, nu = adam
+        if int(np.asarray(count)) != state.step:
+            raise ValueError(f"Adam count {int(np.asarray(count))} != step "
+                             f"{state.step}")
+        for name in TABLES:
+            state.opt_state[name]["mu"].copy_(
+                _rows_of(mu[name]["embedding"], mesh))
+            state.opt_state[name]["nu"].copy_(
+                _rows_of(nu[name]["embedding"], mesh))
     return state
 
 

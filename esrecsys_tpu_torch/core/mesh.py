@@ -12,7 +12,8 @@ is ``ranks[d * n_model + m]``.
     lookups and the all-gather of the sharded top-k.
   * ``data``: the ranks of one model column hold replicas of the same
     shards and take different slices of the batch. Their process group
-    (:attr:`Mesh.data_group`) carries the sum of the row updates.
+    (:attr:`Mesh.data_group`) carries the sum of the row updates and of
+    the dense gradients, and BatchNorm's batch sums on a data mesh.
 
 The reference's ``NamedSharding`` helpers (``data_sharding``,
 ``table_sharding``, ``replicated``) have no object counterpart: a rank
@@ -101,6 +102,21 @@ def distributed_init_if_needed(
     log.info("torch.distributed initialized: rank %d/%d (%s)",
              dist.get_rank(), dist.get_world_size(), dist.get_backend())
     return dist.get_world_size() > 1
+
+
+def check_ranks(n_model: int, what: str, exact: bool = False) -> int:
+    """The world size, after checking that it can hold ``n_model`` shards
+    (a multiple of it; with ``exact``, exactly it). A single process is
+    one rank. Too few or mismatched ranks raise ``ValueError`` naming
+    ``torchrun``: a sharded path never falls back to one rank."""
+    world = process_count()
+    if (world != n_model) if exact else (world % n_model):
+        want = f"{n_model}" if exact else f"a multiple of {n_model}"
+        raise ValueError(
+            f"{what} with {n_model} model shards needs {want} ranks, one "
+            f"per card, and {world} are running: start it under torchrun "
+            f"--nproc_per_node {n_model}")
+    return world
 
 
 def rank_device(device: torch.device) -> torch.device:
@@ -207,6 +223,26 @@ class Mesh:
         if self.model_group is not None:
             dist.reduce(t, dst=self.model_peer(j), group=self.model_group)
         return t
+
+    def broadcast_model(self, t: torch.Tensor, j: int = 0) -> torch.Tensor:
+        """Broadcast ``t`` from the rank at model index ``j`` to the data
+        row's other ranks, in place (their ``t`` gives the shape and
+        receives the values)."""
+        if self.model_group is not None:
+            dist.broadcast(t, src=self.model_peer(j), group=self.model_group)
+        return t
+
+    def min_model(self, t: torch.Tensor) -> torch.Tensor:
+        """All-reduce MIN over the data row's shards, in place."""
+        if self.model_group is not None:
+            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.model_group)
+        return t
+
+    def local(self) -> "Mesh":
+        """This rank's place without its groups: every collective is the
+        identity (a shard's own part of a sharded computation, e.g. a
+        warm-up that must not meet the other ranks)."""
+        return dataclasses.replace(self, model_group=None, data_group=None)
 
     def gather_model(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """``t`` of every shard of the data row, concatenated along

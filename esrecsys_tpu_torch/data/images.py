@@ -25,6 +25,7 @@ from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
+from esrecsys_tpu_torch.core.mesh import process_local_slice
 from esrecsys_tpu_torch.data import jpeg
 from esrecsys_tpu_torch.data.recordio import shuffled
 
@@ -109,7 +110,10 @@ def triplet_image_dataset(
     """(scene, pos, neg) key triplets -> batches of three (B, S, S, 3)
     float32 arrays: repeated (``repeat``), shuffled through a buffer of
     ``min(n, 4096)`` (``shuffle``, seeded), batched with the remainder
-    dropped; each batch's 3B images decoded across :func:`decode_pool`."""
+    dropped; each batch's 3B images decoded across :func:`decode_pool`.
+    Under several ranks each takes its slice of the triplets
+    (``core/mesh.process_local_slice``), as the reference does."""
+    triplets = process_local_slice(triplets)
     files = [tuple(key_to_filename(k, image_dir) for k in t)
              for t in triplets]
     if not files:

@@ -32,6 +32,12 @@ BatchNorm statistics and artifacts cross (``convert.stl_params_from_jax``):
     updates, ``pos`` first.
   * ``train=False`` (eval, serving) normalises with the running
     statistics and updates nothing.
+  * on a data mesh (:meth:`STLModel.set_data_mesh`, more than one data
+    row) the batch statistics are the global batch's, as the reference's
+    single GSPMD program computes them: each rank's sum and sum of
+    squares are summed over the data group (an all-reduce whose backward
+    is the all-reduce of the gradients), so the running statistics stay
+    equal on every rank. The local batches are of equal size.
 
 Images come in NHWC (the pipeline's layout) and are viewed as NCHW in
 ``channels_last`` memory. Init is flax's ``lecun_normal`` (a normal of
@@ -115,21 +121,46 @@ class Conv(nn.Module):
         return y + self.bias.to(x.dtype)[None, :, None, None]
 
 
+class _SumOverData(torch.autograd.Function):
+    """An all-reduce SUM over a mesh's data group, differentiable: every
+    rank's loss reads the sum, so each input's gradient is the sum of the
+    ranks' gradients of the sum."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.sum_data(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.sum_data(g.clone()), None
+
+
 class BatchNorm(nn.Module):
-    """flax's ``nn.BatchNorm(use_bias=False)`` over the channel axis."""
+    """flax's ``nn.BatchNorm(use_bias=False)`` over the channel axis;
+    global-batch statistics on a data mesh (``data_mesh``)."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(channels, device=device))
         self.register_buffer("mean", torch.zeros(channels, device=device))
         self.register_buffer("var", torch.ones(channels, device=device))
+        self.data_mesh = None
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if train:
+        mesh = self.data_mesh
+        if train and mesh is not None and mesh.n_data > 1:
+            n = xf.shape[0] * xf.shape[2] * xf.shape[3] * mesh.n_data
+            sums = _SumOverData.apply(torch.stack(
+                [xf.sum((0, 2, 3)), torch.square(xf).sum((0, 2, 3))]), mesh)
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - torch.square(mean), min=0.0)
+        elif train:
             mean = xf.mean((0, 2, 3))
             var = torch.clamp(torch.square(xf).mean((0, 2, 3))
                               - torch.square(mean), min=0.0)
+        if train:
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean
                                 + (1.0 - BN_MOMENTUM) * mean)
@@ -219,10 +250,19 @@ class STLModel(nn.Module):
         super().__init__()
         self.output_size = output_size
         self.filters = tuple(filters)
+        self.data_mesh = None
         self.scene_tower = ImageTower(output_size, filters, dtype, device,
                                       generator)
         self.product_tower = ImageTower(output_size, filters, dtype, device,
                                         generator)
+
+    def set_data_mesh(self, mesh) -> None:
+        """Take global-batch BatchNorm statistics over ``mesh``'s data
+        group from now on (None: this rank's batch)."""
+        self.data_mesh = mesh
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.data_mesh = mesh
 
     def scene_embed(self, scene: torch.Tensor) -> torch.Tensor:
         return self.scene_tower(scene, train=False)

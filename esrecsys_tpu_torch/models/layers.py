@@ -11,6 +11,7 @@ from torch import nn
 from esrecsys_tpu_torch.core.device import pad_to_multiple
 from esrecsys_tpu_torch.ops import guards
 from esrecsys_tpu_torch.ops.lookup import gather_rows
+from esrecsys_tpu_torch.parallel.table import lookup, shard_rows
 
 
 def normal_embed_init(rows: int, features: int,
@@ -45,6 +46,13 @@ class TableEmbed(nn.Module):
     through :func:`esrecsys_tpu_torch.ops.lookup.gather_rows` (the row
     gather kernel on the card), so the lookup is differentiable in the
     table with a row-scatter backward.
+
+    :meth:`shard` keeps one rank's rows of the table (the reference's
+    ``TableEmbed(mesh=...)``): the lookups are then
+    ``parallel/table.lookup``'s owner-computes ones over the mesh's model
+    group, differentiable in the shard, the shard's gradient this data
+    row's part (the optimizer sums it over the data axis); R above is the
+    whole table's rows.
     """
 
     def __init__(self, num_embeddings: int, features: int,
@@ -60,15 +68,41 @@ class TableEmbed(nn.Module):
         rows = pad_to_multiple(num_embeddings, rows_multiple)
         self.embedding = nn.Parameter(init(rows, features, generator,
                                            device))
+        self.mesh = None
+
+    def shard(self, mesh) -> None:
+        """Keep this rank's rows of the whole table (rows a multiple of
+        the model axis) and look up over ``mesh`` from now on."""
+        self.embedding = nn.Parameter(shard_rows(self.embedding.detach(),
+                                                 mesh))
+        self.mesh = mesh
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         ids = guards.check_ids(ids, self.num_embeddings, self.name)
         table = self.embedding
-        rows = table.shape[0]
+        n = 1 if self.mesh is None else self.mesh.n_model
+        rows = table.shape[0] * n
         ids = ids.to(torch.int64)
         wrapped = torch.where(ids < 0, ids + rows, ids)
         outside = (wrapped < 0) | (wrapped >= rows)
         flat = torch.where(outside, 0, wrapped).reshape(-1)
-        out = gather_rows(table, flat).reshape(*ids.shape, self.features)
+        if self.mesh is None:
+            out = gather_rows(table, flat)
+        else:
+            out = lookup(table, flat, mesh=self.mesh,
+                         ids_data_sharded=False)
+        out = out.reshape(*ids.shape, self.features)
         return torch.where(outside[..., None],
                            torch.full_like(out, float("nan")), out)
+
+
+def whole_state_dict(module: nn.Module) -> dict:
+    """``module``'s state dict with every sharded :class:`TableEmbed`'s
+    table gathered whole from its data row (a collective every rank of the
+    row calls), detached."""
+    sd = {k: v.detach() for k, v in module.state_dict().items()}
+    for name, m in module.named_modules():
+        if isinstance(m, TableEmbed) and m.mesh is not None:
+            key = f"{name}.embedding" if name else "embedding"
+            sd[key] = m.mesh.gather_model(m.embedding.detach().contiguous())
+    return sd

@@ -23,7 +23,8 @@ run through the LSTM then), and steps past a sequence's end give no
 gradient. On a card every float32 product here must be full float32
 (TF32 off), as the reference's are.
 
-Both tables are ``TableEmbed``s without row padding, initialised
+Both tables are ``TableEmbed``s without row padding (but to the model
+axis on a mesh, where they are row-sharded), initialised
 ``he_normal`` (fan-in the table's row count, as flax's variance scaling
 reads an embedding table); their lookups go through the row-gather
 kernel and the row scatter-add kernel in the backward. The three URL
@@ -135,14 +136,16 @@ class SentenceEncoder(nn.Module):
 
     def __init__(self, vocab_size: int, word_dim: int = 64,
                  rnn_size: int = 64, url_dim: int = 64,
-                 encoder_type: str = "lstm", device=None, generator=None):
+                 encoder_type: str = "lstm", device=None, generator=None,
+                 rows_multiple: int = 1):
         super().__init__()
         if encoder_type not in ("lstm", "mean"):
             raise ValueError(f"unknown encoder_type {encoder_type!r}")
         self.encoder_type = encoder_type
         self.word_embedding = TableEmbed(
-            vocab_size, word_dim, device=device, generator=generator,
-            name="word_embedding", init=he_normal_embed_init)
+            vocab_size, word_dim, rows_multiple, device=device,
+            generator=generator, name="word_embedding",
+            init=he_normal_embed_init)
         if encoder_type == "lstm":
             self.rnn = LSTM(word_dim, rnn_size, device, generator)
         self.to_url = Dense(rnn_size if encoder_type == "lstm" else word_dim,
@@ -162,16 +165,22 @@ class SentenceEncoder(nn.Module):
 
 
 class Txt2UrlModel(nn.Module):
+    """``rows_multiple`` pads both tables' rows (to the model axis on a
+    mesh, as the reference's ``TableEmbed(mesh=...)`` pads them; the
+    padded rows sit past the id guard)."""
+
     def __init__(self, word_vocab_size: int, url_vocab_size: int,
                  word_dim: int = 64, rnn_size: int = 64, url_dim: int = 64,
-                 encoder_type: str = "lstm", device=None, generator=None):
+                 encoder_type: str = "lstm", device=None, generator=None,
+                 rows_multiple: int = 1):
         super().__init__()
         self.encoder = SentenceEncoder(word_vocab_size, word_dim, rnn_size,
                                        url_dim, encoder_type, device,
-                                       generator)
+                                       generator, rows_multiple)
         self.url_embedding = TableEmbed(
-            url_vocab_size, url_dim, device=device, generator=generator,
-            name="url_embedding", init=he_normal_embed_init)
+            url_vocab_size, url_dim, rows_multiple, device=device,
+            generator=generator, name="url_embedding",
+            init=he_normal_embed_init)
 
     def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.encoder(tokens)

@@ -38,12 +38,17 @@ The reference's 128-lane packed layouts (``lazy_adam_packed_update``,
 
 On a mesh (``rows_sharded``, a ``core.mesh.Mesh``) a table is this rank's
 row-shard and its state the state of those rows. The reference's
-``rows_sharded`` only turns its packed layout off, GSPMD doing the rest;
-here it means: every data rank's ids and row gradients are gathered over
-the data axis (so each replica applies the sum of all data rows'
-updates, in one order on every replica), global ids become ids local to
-the shard, and rows another shard owns are dropped (id -1, which the row
-kernels read as a zero row and whose updates they drop).
+``rows_sharded`` only turns its packed layout off, GSPMD doing the rest
+(its ``_like_table_sharding`` places the state with the table's rows);
+here it means, for the row-sparse updates: every data rank's ids and row
+gradients are gathered over the data axis (so each replica applies the
+sum of all data rows' updates, in one order on every replica), global ids
+become ids local to the shard, and rows another shard owns are dropped
+(id -1, which the row kernels read as a zero row and whose updates they
+drop); for the dense updates (:func:`adam_update`, :func:`rmsprop_update`):
+the gradient, this data row's part of the shard's (or of a replicated
+parameter's) gradient, is summed over the data axis in place before the
+update.
 """
 
 from __future__ import annotations
@@ -243,12 +248,13 @@ def _decayed(rows: torch.Tensor, decay: float,
 def lazy_adam_update(table: torch.Tensor, state: State, ids: torch.Tensor,
                      row_grads: torch.Tensor, *, lr: float, b1: float = 0.9,
                      b2: float = 0.999, eps: float = 1e-8,
-                     step: int) -> None:
+                     step: int, rows_sharded: Optional[Mesh] = None) -> None:
     """TF-LazyAdam on the rows ``ids`` (n,) with ``row_grads`` (n, D): the
     moments and rows of the touched rows update, with the bias correction
     of the global ``step`` (0-based); ``table`` and ``state`` in place.
     Duplicate ids are summed into their first occurrence, as in
-    :func:`lazy_momentum_update`."""
+    :func:`lazy_momentum_update` (on a mesh, across the data rows too)."""
+    ids, row_grads = shard_updates(table, ids, row_grads, rows_sharded)
     if ids.shape[0] == 0:
         return
     sids, _, g, w = _first_occurrences(ids, row_grads)
@@ -268,12 +274,17 @@ def lazy_adam_update(table: torch.Tensor, state: State, ids: torch.Tensor,
 
 def adam_update(param: torch.Tensor, grad: torch.Tensor, state: State, *,
                 lr: float, b1: float = 0.9, b2: float = 0.999,
-                eps: float = 1e-8, step: int) -> None:
+                eps: float = 1e-8, step: int,
+                rows_sharded: Optional[Mesh] = None) -> None:
     """One dense Adam step of ``param`` in place, in optax's order
     (``optax.adam(lr)`` with ``eps_root`` 0): ``mu = (1 - b1) g + b1 mu``,
     ``nu = (1 - b2) g^2 + b2 nu``, ``p += -lr * mu_hat / (sqrt(nu_hat) +
     eps)`` with the bias corrections of ``step + 1`` updates. ``state``
-    holds ``mu`` and ``nu`` shaped like ``param``, float32."""
+    holds ``mu`` and ``nu`` shaped like ``param``, float32. On a mesh
+    (``rows_sharded``) ``grad`` is summed over the data axis first, in
+    place."""
+    if rows_sharded is not None:
+        grad = rows_sharded.sum_data(grad)
     t = np.float32(step + 1)
     mu, nu = state["mu"], state["nu"]
     mu.mul_(b1).add_(grad * (1.0 - b1))
@@ -299,14 +310,18 @@ def exponential_decay(init_value: float, transition_steps: int,
 
 def rmsprop_update(param: torch.Tensor, grad: torch.Tensor, state: State,
                    *, lr: float, decay: float = 0.9,
-                   eps: float = 1e-8) -> None:
+                   eps: float = 1e-8,
+                   rows_sharded: Optional[Mesh] = None) -> None:
     """One dense ``optax.rmsprop(lr)`` step of ``param`` in place:
     ``nu = (1 - decay) g^2 + decay nu`` (``state["nu"]``, zeros at the
     start), then ``param += -lr * (rsqrt(nu + eps) * g)``, eps inside the
     root. ``lr`` is the schedule's value at the step's count, read before
     the count moves (:func:`exponential_decay`). Not
     ``torch.optim.RMSprop``, which takes ``alpha`` 0.99 and divides by
-    ``sqrt(v) + eps``."""
+    ``sqrt(v) + eps``. On a mesh (``rows_sharded``) ``grad`` is summed
+    over the data axis first, in place."""
+    if rows_sharded is not None:
+        grad = rows_sharded.sum_data(grad)
     nu = state["nu"]
     nu.mul_(decay).add_(grad.square().mul_(1.0 - decay))
     param.add_(torch.rsqrt(nu + eps).mul_(grad).mul_(-lr))

@@ -19,7 +19,9 @@ Quantized serving scans an int8 copy instead (:func:`pack_catalog_int8`,
 copy's bytes; the k winners are rescored from float32 rows, or from the
 int8 rows dequantized (``rescore_scales``).
 
-Not ported yet: the catalog-sharded path.
+:func:`sharded_fused_topk_over_matrix` is the catalog-sharded form: each
+rank scans its own (D, rps) slice, rescores its own rows and joins the
+shards' exchange (``mips.exchange_topk``).
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ from esrecsys_tpu_torch.core.device import pad_to_multiple
 from esrecsys_tpu_torch.kernels.fused_affinity import fused_affinity
 from esrecsys_tpu_torch.kernels.fused_scan import (SUPPORTED_DIMS, fused_scan,
                                                    fused_scan_int8)
-from esrecsys_tpu_torch.retrieval.mips import (NEG_INF, Count, pad_topk,
-                                               quantize_rows,
+from esrecsys_tpu_torch.retrieval.mips import (NEG_INF, Count,
+                                               exchange_topk, pad_topk,
+                                               quantize_rows, shard_bound,
                                                topk_lower_index_first,
                                                valid_bound)
 
@@ -201,6 +204,46 @@ def binned_topk_over_matrix(
     exact = torch.where(torch.isfinite(bvals), exact, NEG_INF)
     out_vals, order = topk_lower_index_first(exact, k_eff)
     return pad_topk(out_vals, torch.gather(cand, -1, order), k)
+
+
+def sharded_fused_topk_over_matrix(
+    queries: torch.Tensor,       # (B, D) float32, the same on every shard
+    items: torch.Tensor,         # (rps, D) float32 rescore rows: this rank's
+    items_packed: torch.Tensor,  # (D, rps) bf16 scan copy of the same rows
+    k: int,
+    mesh,
+    num_bins: int = 4096,
+    valid_items: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Catalog-sharded fused scan+select (the reference's
+    ``sharded_fused_topk_over_matrix``): each rank runs the fused scan
+    over its own (D, rps) slice (``rps`` a whole number of ``L``-wide bin
+    blocks: pad the catalog to ``n_model * L`` rows before cutting it,
+    what the reference's ``pack_catalog(..., shards=n)`` means) with the
+    valid bound of its rows, takes a local top-k of the per-bin
+    candidates, rescores them exactly from its float32 rows (an
+    elementwise multiply-sum in float32, which no TF32 setting touches:
+    the reference's ``Precision.HIGHEST``), and joins
+    ``mips.exchange_topk``. Padding rows never return. Returns (values
+    (B, k), global ids (B, k) int64)."""
+    L = max(128, pad_to_multiple(num_bins, 128))
+    rps = items_packed.shape[1]
+    if rps % L or items.shape[0] != rps:
+        raise ValueError(
+            f"a shard's scan copy {tuple(items_packed.shape)} and rows "
+            f"{tuple(items.shape)} must hold the same whole {L}-wide bin "
+            "blocks; pad the catalog to n_model * num_bins rows first")
+    base, bound = shard_bound(valid_items, rps, mesh)
+    k_local = min(k, rps)
+    vals, ids = binned_candidates(queries, items_packed, rps, num_bins=L,
+                                  valid_count=bound)
+    bvals, sel = topk_lower_index_first(vals, k_local)
+    cand = torch.gather(ids, -1, sel).to(torch.int64)      # local rows
+    rows = items[cand]
+    exact = (rows * queries.float()[:, None, :]).sum(-1)
+    exact = torch.where(torch.isfinite(bvals), exact, NEG_INF)
+    v, order = topk_lower_index_first(exact, k_local)
+    return exchange_topk(v, torch.gather(cand, -1, order) + base, k, mesh)
 
 
 def pack_payload(values: torch.Tensor, padded: int) -> torch.Tensor:

@@ -4,7 +4,10 @@ streaming ``chunked_topk`` / ``chunked_grouped_topk`` of the eval, the
 int8 scan of quantized serving, ``quantize_rows`` and
 ``quantized_topk_over_matrix``, the approx scan
 ``approx_topk_over_matrix`` with its two-phase skeleton, and the
-catalog-sharded ``sharded_scored_topk`` of the sharded eval).
+catalog-sharded scans: ``sharded_scored_topk`` of the sharded evals,
+``sharded_topk_over_matrix`` and ``sharded_quantized_topk_over_matrix`` of
+sharded serving, all ending in one exchange of the shards' candidates,
+:func:`exchange_topk`).
 
 The reference streams the catalog with a group-max prefilter because
 ``lax.top_k`` costs about a nanosecond per element on the TPU. The port
@@ -274,10 +277,80 @@ def sharded_scored_topk(
                                           k_local, group=group)
     else:
         vals, idxs = chunked_topk(score_block, rps, k_local)
+    return exchange_topk(vals, idxs + base, k, mesh)
+
+
+def shard_bound(valid_items: Optional[int], rps: int, mesh) -> Tuple[int, int]:
+    """(this rank's first global row, its count of real rows): the rows at
+    or past ``valid_items`` (global numbering; default all) are padding."""
+    base = mesh.model_index * rps
+    valid = rps * mesh.n_model if valid_items is None else valid_items
+    return base, max(0, min(valid - base, rps))
+
+
+def exchange_topk(vals: torch.Tensor, idxs: torch.Tensor, k: int, mesh
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The shards' local top-k exchange: each rank's (values (B, n),
+    global ids (B, n)) all-gathered over the data row in model-index order
+    and topped again, equal scores keeping the lower position (the lower
+    shard, then the shard's own order). -inf slots come back with id 0,
+    padded to width ``k``."""
+    idxs = torch.where(torch.isfinite(vals), idxs, 0)
     vals_g = mesh.gather_model(vals, dim=-1)
-    idxs_g = mesh.gather_model(idxs + base, dim=-1)
+    idxs_g = mesh.gather_model(idxs, dim=-1)
     top, sel = topk_lower_index_first(vals_g, min(k, vals_g.shape[-1]))
     return pad_topk(top, torch.gather(idxs_g, -1, sel), k)
+
+
+def sharded_topk_over_matrix(
+    queries: torch.Tensor,   # (B, D) float32, the same on every shard
+    items: torch.Tensor,     # (rps, D) float32: this rank's rows
+    k: int,
+    mesh,
+    block_size: int = 8192,
+    valid_items: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Catalog-sharded exact MIPS (the reference's
+    ``sharded_topk_over_matrix``): each rank scans its row-shard (shard j
+    holds global rows ``[j * rps, (j + 1) * rps)``) with
+    :func:`topk_over_matrix`, then :func:`exchange_topk`. Rows at or past
+    ``valid_items`` (global numbering) are padding and never return.
+    Returns (values (B, k), global ids (B, k) int64). A collective every
+    rank of the data row calls."""
+    rps = items.shape[0]
+    base, bound = shard_bound(valid_items, rps, mesh)
+    vals, idxs = topk_over_matrix(queries, items, min(k, rps), block_size,
+                                  valid_count=bound)
+    return exchange_topk(vals, idxs + base, k, mesh)
+
+
+def sharded_quantized_topk_over_matrix(
+    queries: torch.Tensor,        # (B, D) float32, the same on every shard
+    q_items: torch.Tensor,        # (rps, D) int8: this rank's rows
+    item_scales: torch.Tensor,    # (rps,) float32
+    k: int,
+    mesh,
+    rescore_items: Optional[torch.Tensor] = None,  # (rps, D) float32
+    block_size: int = 262_144,
+    valid_items: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Catalog-sharded MIPS with an int8 local scan (the reference's
+    ``sharded_quantized_topk_over_matrix``): each rank runs
+    :func:`quantized_topk_over_matrix` over its rows (the blocked
+    ``torch._int_mm`` scan, about ``OVERSAMPLE * k`` candidates, a local
+    float32 rescore from ``rescore_items``, or from its int8 rows
+    dequantized when that is None, so that no float32 row need be on any
+    card), with the valid bound applied before every top-k, then
+    :func:`exchange_topk`. Returns (values (B, k), global ids (B, k)
+    int64)."""
+    rps = q_items.shape[0]
+    base, bound = shard_bound(valid_items, rps, mesh)
+    r8 = rescore_items is None
+    vals, idxs = quantized_topk_over_matrix(
+        queries, q_items, item_scales, q_items if r8 else rescore_items,
+        min(k, rps), block_size=block_size,
+        rescore_scales=item_scales if r8 else None, valid_count=bound)
+    return exchange_topk(vals, idxs + base, k, mesh)
 
 
 _INV127 = 1.0 / 127.0  # rounded to float32 once, as the reference does

@@ -41,8 +41,14 @@
                                   built while the old one answers, then
                                   swapped in (RetrievalHTTPServer)
 
-Not ported yet (construction raises ``NotImplementedError`` naming the
-option): the catalog-sharded modes (``n_model_shards``).
+``n_model_shards=N`` shards the catalog's rows over N ranks, one card
+each (``torchrun --nproc_per_node N``): every rank holds and scans its
+rows (exact, int8, int8 with ``rescore_int8``, or fused) and the shards'
+candidates meet in one all-gather (``mips.exchange_topk``). Rank 0 holds
+the HTTP front, the ``QueryBatcher`` and ``/statsz``; before each device
+call it broadcasts a fixed-shape header and the query block over the
+model group (:class:`ShardChannel`), and the other ranks answer in
+:func:`serve_shard_worker` until rank 0 sends the stop header.
 """
 
 from __future__ import annotations
@@ -60,36 +66,102 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from esrecsys_tpu_torch.core import mesh as mesh_lib
 from esrecsys_tpu_torch.core.device import pad_to_multiple, resolve_device
-from esrecsys_tpu_torch.retrieval.fused import (binned_topk_over_matrix,
-                                                pack_catalog,
-                                                pack_catalog_codes, pad_mask,
-                                                validate_fused_bins)
+from esrecsys_tpu_torch.retrieval.fused import (
+    binned_topk_over_matrix, pack_catalog, pack_catalog_codes, pad_mask,
+    sharded_fused_topk_over_matrix, validate_fused_bins)
 from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
 from esrecsys_tpu_torch.retrieval.ivf import IVFIndex, ivf_pq_topk, ivf_topk
-from esrecsys_tpu_torch.retrieval.mips import (approx_topk_over_matrix,
-                                               quantize_rows,
-                                               quantize_rows_np,
-                                               quantized_topk_over_matrix,
-                                               topk_over_matrix)
+from esrecsys_tpu_torch.retrieval.mips import (
+    approx_topk_over_matrix, quantize_rows, quantize_rows_np,
+    quantized_topk_over_matrix, sharded_quantized_topk_over_matrix,
+    sharded_topk_over_matrix, topk_over_matrix)
 from esrecsys_tpu_torch.retrieval.pq import PQCodebook, pq_topk
 
 log = logging.getLogger(__name__)
 
-# the reference's serving options that have no port yet
-UNPORTED_OPTIONS = ("n_model_shards",)
+# the commands rank 0 sends the other shards (a header's first field)
+OP_QUERY, OP_RELOAD, OP_COMMIT, OP_STOP = 1, 2, 3, 4
+HEADER = 5            # int64 fields: op, B, D, k, n
+PATH_BYTES = 4096     # a reload's index path, utf-8, zero-padded
 
 
-def _reject_unported(options: dict) -> None:
-    for name in options:
-        if name not in UNPORTED_OPTIONS:
-            raise TypeError(f"unexpected keyword argument {name!r}")
-    for name in UNPORTED_OPTIONS:
-        if options.get(name):
-            raise NotImplementedError(
-                f"serving option {name!r} is not ported yet; the port "
-                "serves the exact, approx, fused, int8 (quantized), ivf "
-                "and pq modes on one card")
+class ShardChannel:
+    """Rank 0's commands to the other shards of a sharded service, over
+    the mesh's model group: a fixed-shape int64 header ``(op, B, D, k,
+    n)`` broadcast from model index 0, then the command's payload (a
+    ``(n, D)`` float32 query block, or a ``PATH_BYTES`` path), and for a
+    reload's commit one MIN all-reduce of each rank's success. Fixed
+    shapes keep NCCL simple. Every broadcast and the call it announces run
+    under :attr:`lock` on rank 0, so the ranks meet their collectives in
+    one order; the lock outlives a reload (the new service takes the old
+    one's channel). :attr:`current` is the service whose catalog the
+    shard ranks scan now: a reload's commit sets it under the lock, and a
+    retired service's queries go to it (a query of the old catalog would
+    meet the other ranks' new shards)."""
+
+    def __init__(self, mesh: mesh_lib.Mesh):
+        self.mesh = mesh
+        self.lock = threading.Lock()
+        self.closed = False
+        self.current: Optional["RetrievalService"] = None
+        self.device = (mesh_lib.collective_device()
+                       if mesh.model_group is not None
+                       else torch.device("cpu"))
+
+    @property
+    def front(self) -> bool:
+        """Whether this rank holds the front (model index 0)."""
+        return self.mesh.model_index == 0
+
+    def send(self, op: int, b: int = 0, d: int = 0, k: int = 0,
+             n: int = 0) -> None:
+        """Rank 0: broadcast a header (the caller holds :attr:`lock`)."""
+        if self.closed:
+            raise RuntimeError("the shard ranks have stopped")
+        self.mesh.broadcast_model(torch.tensor(
+            [op, b, d, k, n], dtype=torch.int64, device=self.device))
+
+    def recv(self) -> list:
+        """The other ranks: the next header, as ``[op, B, D, k, n]``."""
+        h = torch.zeros(HEADER, dtype=torch.int64, device=self.device)
+        return self.mesh.broadcast_model(h).tolist()
+
+    def queries(self, block: Optional[np.ndarray], n: int, d: int
+                ) -> torch.Tensor:
+        """The ``(n, D)`` float32 query block from rank 0 (``block`` there,
+        None elsewhere)."""
+        t = (torch.from_numpy(np.ascontiguousarray(block, np.float32))
+             .to(self.device) if block is not None else
+             torch.empty((n, d), dtype=torch.float32, device=self.device))
+        return self.mesh.broadcast_model(t)
+
+    def path(self, path: Optional[str] = None) -> str:
+        """A reload's index path from rank 0 (``path`` there)."""
+        buf = torch.zeros(PATH_BYTES, dtype=torch.uint8)
+        if path is not None:
+            raw = path.encode()
+            if len(raw) > PATH_BYTES:
+                raise ValueError(f"index path longer than {PATH_BYTES} "
+                                 "bytes")
+            buf[:len(raw)] = torch.frombuffer(bytearray(raw),
+                                              dtype=torch.uint8)
+        got = self.mesh.broadcast_model(buf.to(self.device)).cpu()
+        return bytes(got[got != 0].tolist()).decode()
+
+    def agree(self, ok: bool) -> bool:
+        """Whether every rank says ``ok`` (a MIN all-reduce)."""
+        t = torch.tensor([int(ok)], dtype=torch.int64, device=self.device)
+        return bool(self.mesh.min_model(t).item())
+
+    def stop(self) -> None:
+        """Rank 0: send the stop header once (after the call in flight);
+        later device calls raise."""
+        with self.lock:
+            if not self.closed:
+                self.send(OP_STOP)
+                self.closed = True
 
 
 def _npz_path(path: Optional[str]) -> Optional[str]:
@@ -154,12 +226,12 @@ class RetrievalService:
                  device: Optional[Union[str, torch.device]] = None,
                  ivf_warm_from: Optional[IVFIndex] = None,
                  pq_warm_from: Optional[PQCodebook] = None,
-                 **unported):
-        if fused and quantized and unported.get("n_model_shards"):
+                 n_model_shards: Optional[int] = None,
+                 _channel: Optional[ShardChannel] = None):
+        if fused and quantized and n_model_shards:
             raise ValueError(
                 "sharded fused serving scans bf16: drop quantized or "
                 "n_model_shards (int8 scan copies are single-shard)")
-        _reject_unported(unported)
         want_ivf = bool(ivf_clusters or ivf_index_path)
         want_pq = bool(pq_subspaces or pq_index_path)
         if want_ivf and approx:
@@ -178,12 +250,42 @@ class RetrievalService:
             raise ValueError(
                 "rescore_int8 drops the resident f32 catalog, so the scan "
                 "must not need it: enable quantized or a pq mode")
-        if add_capacity and want_ivf:
+        # the sharded scan is exact or int8 (or fused); the approximate
+        # selections, the growth buffers and the filter masks stay
+        # single-card modes, as in the reference
+        if n_model_shards and (approx or want_ivf or want_pq):
+            raise ValueError(
+                "n_model_shards serves the sharded scan (exact or "
+                "quantized): it does not compose with approx/ivf/pq")
+        if add_capacity and (want_ivf or n_model_shards):
             raise ValueError(
                 "add_capacity composes with the full-scan modes "
-                "(exact/approx/int8/pq); ivf catalogs grow via "
-                "/admin/reload")
+                "(exact/approx/int8/pq); ivf and sharded catalogs grow "
+                "via /admin/reload")
+        if filters is not None and n_model_shards:
+            raise ValueError(
+                "filters are single-chip modes for now (the mask buffer "
+                "is not sharded): drop n_model_shards or the filters")
         self.device = resolve_device(device)
+        self.n_model_shards = n_model_shards
+        self._mesh = self._channel = None
+        if n_model_shards:
+            if _channel is None:
+                mesh_lib.distributed_init_if_needed(device=self.device)
+                mesh_lib.check_ranks(n_model_shards, "sharded serving",
+                                     exact=True)
+                self.device = mesh_lib.rank_device(self.device)
+                _channel = ShardChannel(
+                    mesh_lib.make_mesh(n_model=n_model_shards))
+                _channel.current = self
+            self._channel = _channel
+            self._mesh = _channel.mesh
+            # what a shard rank rebuilds its service from on a reload
+            self._shard_kwargs = dict(
+                max_k=max_k, max_batch=max_batch, block_size=block_size,
+                fused=fused, fused_bins=fused_bins, quantized=quantized,
+                rescore_int8=rescore_int8, n_model_shards=n_model_shards,
+                encoders=encoders, device=self.device)
         self.index = index
         # raw-query embedders, e.g. {"text": txt2url_text_encoder(...)}
         self.encoders = dict(encoders or {})
@@ -218,58 +320,64 @@ class RetrievalService:
                                 use_scales=quantized, device=self.device)
         else:
             self._fused_bins = None
-        # one build-or-load decision per structure, shared by the upload
-        # gate and the builds below
-        ivf_index_path = _npz_path(ivf_index_path)
-        pq_index_path = _npz_path(pq_index_path)
-        ivf_prebuilt = bool(ivf_index_path and os.path.exists(ivf_index_path))
-        pq_prebuilt = bool(pq_index_path and os.path.exists(pq_index_path))
-        # (capacity, D) float32 rows, resident unless rescore_int8 drops
-        # them; under rescore_int8 a build or a warm start uploads the real
-        # rows for itself and drops them after, and with every structure
-        # prebuilt no float32 catalog reaches the device at all
-        self._items = (None if rescore_int8 else
-                       self._at_capacity(torch.from_numpy(index.vectors)))
-        build_rows = None
-        if self._items is not None:
-            build_rows = self._items[:self._n_valid]
-        elif (ivf_warm_from is not None or pq_warm_from is not None
-              or (want_ivf and not ivf_prebuilt)
-              or (want_pq and not pq_prebuilt)):
-            build_rows = torch.from_numpy(index.vectors).to(self.device)
-        # int8 rows and scales: quantized on the device from the resident
-        # float32 rows, or on the host (the bit-identical numpy twin) under
-        # rescore_int8, so that no float32 catalog need reach the device;
-        # the capacity tail holds code 0 and scale 0
-        self._q_items = self._scales = None
-        if (quantized or rescore_int8) and self._items is not None:
-            q8, sc = quantize_rows(self._items[:self._n_valid])
-            self._q_items, self._scales = (self._at_capacity(q8),
-                                           self._at_capacity(sc))
-        elif quantized or rescore_int8:
-            q8, sc = quantize_rows_np(index.vectors)
-            self._q_items = self._at_capacity(torch.from_numpy(q8))
-            self._scales = self._at_capacity(torch.from_numpy(sc))
         self.ivf = self._centroids = self._bucket_ids = None
-        if want_ivf or ivf_warm_from is not None:
-            self._setup_ivf(build_rows, ivf_clusters, ivf_iters, ivf_max_cell,
-                            build_train_sample, ivf_index_path, ivf_prebuilt,
-                            ivf_warm_from)
         self.pq = self._pq_centroids = self._pq_codes = self._pq_rot = None
         self._pq_codes_host = None
-        if want_pq or pq_warm_from is not None:
-            self._setup_pq(build_rows, pq_subspaces, pq_codes, pq_iters,
-                           pq_rotate, pq_anisotropic, build_train_sample,
-                           pq_index_path, pq_prebuilt, pq_warm_from)
-        del build_rows
-        # the scan copy, built once on the device at capacity: transposed
-        # bf16, or the transposed int8 codes with a flat scale per item
         self._items_packed = self._fused_scales = None
-        if fused and quantized:
-            self._items_packed, self._fused_scales = pack_catalog_codes(
-                self._q_items, self._scales, self._fused_bins)
-        elif fused:
-            self._items_packed = pack_catalog(self._items, self._fused_bins)
+        if n_model_shards:
+            self._setup_shard(index)
+        else:
+            # one build-or-load decision per structure, shared by the upload
+            # gate and the builds below
+            ivf_index_path = _npz_path(ivf_index_path)
+            pq_index_path = _npz_path(pq_index_path)
+            ivf_prebuilt = bool(ivf_index_path
+                                and os.path.exists(ivf_index_path))
+            pq_prebuilt = bool(pq_index_path
+                               and os.path.exists(pq_index_path))
+            # (capacity, D) float32 rows, resident unless rescore_int8 drops
+            # them; under rescore_int8 a build or a warm start uploads the real
+            # rows for itself and drops them after, and with every structure
+            # prebuilt no float32 catalog reaches the device at all
+            self._items = (None if rescore_int8 else
+                           self._at_capacity(torch.from_numpy(index.vectors)))
+            build_rows = None
+            if self._items is not None:
+                build_rows = self._items[:self._n_valid]
+            elif (ivf_warm_from is not None or pq_warm_from is not None
+                  or (want_ivf and not ivf_prebuilt)
+                  or (want_pq and not pq_prebuilt)):
+                build_rows = torch.from_numpy(index.vectors).to(self.device)
+            # int8 rows and scales: quantized on the device from the resident
+            # float32 rows, or on the host (the bit-identical numpy twin) under
+            # rescore_int8, so that no float32 catalog need reach the device;
+            # the capacity tail holds code 0 and scale 0
+            self._q_items = self._scales = None
+            if (quantized or rescore_int8) and self._items is not None:
+                q8, sc = quantize_rows(self._items[:self._n_valid])
+                self._q_items, self._scales = (self._at_capacity(q8),
+                                               self._at_capacity(sc))
+            elif quantized or rescore_int8:
+                q8, sc = quantize_rows_np(index.vectors)
+                self._q_items = self._at_capacity(torch.from_numpy(q8))
+                self._scales = self._at_capacity(torch.from_numpy(sc))
+            if want_ivf or ivf_warm_from is not None:
+                self._setup_ivf(build_rows, ivf_clusters, ivf_iters,
+                                ivf_max_cell, build_train_sample,
+                                ivf_index_path, ivf_prebuilt, ivf_warm_from)
+            if want_pq or pq_warm_from is not None:
+                self._setup_pq(build_rows, pq_subspaces, pq_codes, pq_iters,
+                               pq_rotate, pq_anisotropic, build_train_sample,
+                               pq_index_path, pq_prebuilt, pq_warm_from)
+            del build_rows
+            # the scan copy, built once on the device at capacity: transposed
+            # bf16, or the transposed int8 codes with a flat scale per item
+            if fused and quantized:
+                self._items_packed, self._fused_scales = pack_catalog_codes(
+                    self._q_items, self._scales, self._fused_bins)
+            elif fused:
+                self._items_packed = pack_catalog(self._items,
+                                                  self._fused_bins)
         self._ids = np.empty(self.capacity, dtype=object)
         self._ids[:self._n_valid] = index.ids
         self._filters_enabled = filters is not None
@@ -279,12 +387,43 @@ class RetrievalService:
             self._filter_masks[str(name)] = mask
             log.info("filter %r: %d/%d ids matched the catalog", name,
                      matched, len(id_list))
-        self._lock = threading.Lock()
+        # a sharded service's calls take the channel's lock: the header
+        # and the call it announces reach every rank in one order
+        self._lock = (self._channel.lock if self._channel is not None
+                      else threading.Lock())
         # per-dispatch latency ring (seconds); /statsz reports percentiles
         self._lat: "collections.deque[float]" = collections.deque(maxlen=2048)
+        # the warm-up builds and launches the kernels; a shard warms up its
+        # own part only, meeting no other rank
         warm = torch.zeros((max_batch, self._dim), device=self.device)
-        self._query(warm)[0].cpu()
+        self._query(warm, mesh=None if self._mesh is None
+                    else self._mesh.local())[0].cpu()
 
+    def _setup_shard(self, index: EmbeddingIndex) -> None:
+        """This rank's rows of the catalog, padded with zero rows to a
+        multiple of the shard count (times the bin count in fused mode, so
+        that each shard's slice is whole bin blocks): the float32 rows
+        (unless ``rescore_int8``), the int8 rows and scales from the host
+        quantizer (``quantized`` or ``rescore_int8``), and the bf16 scan
+        copy of its slice (``fused``)."""
+        n = self.n_model_shards
+        padded = pad_to_multiple(self._n_valid,
+                                 n * (self._fused_bins if self.fused else 1))
+        rows = self._mesh.row_range(padded)
+        vecs = index.vectors[rows.start:min(rows.stop, self._n_valid)]
+        short = len(rows) - vecs.shape[0]
+        if short:
+            vecs = np.concatenate(
+                [vecs, np.zeros((short, self._dim), np.float32)])
+        self._items = (None if self.rescore_int8 else
+                       torch.from_numpy(vecs).to(self.device))
+        self._q_items = self._scales = None
+        if self.quantized or self.rescore_int8:
+            q8, sc = quantize_rows_np(vecs)
+            self._q_items = torch.from_numpy(q8).to(self.device)
+            self._scales = torch.from_numpy(sc).to(self.device)
+        if self.fused:
+            self._items_packed = pack_catalog(self._items, self._fused_bins)
     def _setup_ivf(self, rows, ivf_clusters, ivf_iters, ivf_max_cell,
                    train_sample, path, prebuilt, warm_from) -> None:
         """The inverted file: reassigned from ``warm_from``, loaded from a
@@ -386,8 +525,11 @@ class RetrievalService:
         out[:rows.shape[0]].copy_(rows)
         return out
 
-    def _query(self, q: torch.Tensor, fmask: Optional[torch.Tensor] = None
+    def _query(self, q: torch.Tensor, fmask: Optional[torch.Tensor] = None,
+               mesh: Optional[mesh_lib.Mesh] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self._mesh is not None:
+            return self._query_shard(q, mesh or self._mesh)
         # under rescore_int8 the candidates are rescored from the int8
         # rows, dequantized; otherwise from the float32 rows
         r8 = self.rescore_int8
@@ -441,6 +583,51 @@ class RetrievalService:
                 item_mask=fmask)
         return topk_over_matrix(q, self._items, self.max_k, self.block_size,
                                 valid_count=valid, item_mask=fmask)
+
+    def _query_shard(self, q: torch.Tensor, mesh: mesh_lib.Mesh
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's scan of its rows and the shards' exchange (a
+        collective of the data row, unless ``mesh`` is a local one)."""
+        valid = self._n_valid
+        if self.fused:
+            return sharded_fused_topk_over_matrix(
+                q, self._items, self._items_packed, self.max_k, mesh,
+                num_bins=self._fused_bins, valid_items=valid)
+        if self.quantized:
+            return sharded_quantized_topk_over_matrix(
+                q, self._q_items, self._scales, self.max_k, mesh,
+                rescore_items=self._items,  # None under rescore_int8
+                block_size=max(self.block_size, 262_144),
+                valid_items=valid)
+        return sharded_topk_over_matrix(q, self._items, self.max_k, mesh,
+                                        self.block_size, valid_items=valid)
+
+    def _dispatch(self, chunk: np.ndarray) -> torch.Tensor:
+        """A (B, D) chunk on the device; a sharded service's front first
+        sends the other ranks the header and the query block (the caller
+        holds the lock)."""
+        if self._channel is None or self._mesh.model_group is None:
+            return torch.from_numpy(chunk).to(self.device)
+        b = chunk.shape[0]
+        block = np.zeros((self.max_batch, self._dim), np.float32)
+        block[:b] = chunk
+        self._channel.send(OP_QUERY, b, self._dim, self.max_k,
+                           self.max_batch)
+        return self._channel.queries(block, self.max_batch,
+                                     self._dim)[:b].to(self.device)
+
+    def _retired(self) -> bool:
+        """Whether a sharded reload has replaced this service on the shard
+        ranks (read under the channel's lock)."""
+        return self._channel is not None and self._channel.current is not self
+
+    def stop_shards(self) -> None:
+        """Rank 0 of a sharded service: tell the other ranks'
+        :func:`serve_shard_worker` loops to return (after the call in
+        flight). Later queries raise. A no-op elsewhere."""
+        if (self._channel is not None and self._channel.front
+                and self._mesh.model_group is not None):
+            self._channel.stop()
 
     def _mask_from_ids(self, id_list: Sequence[str]):
         """(device bool mask over the catalog rows, n ids that matched).
@@ -571,6 +758,9 @@ class RetrievalService:
         """Human-readable name of the active catalog-scan mode."""
         r8 = "+r8" if self.rescore_int8 else ""  # int8 rescore, f32-free
         q8 = "+int8" if self.quantized else ""
+        if self.n_model_shards:
+            fz = f"+fused:bins={self._fused_bins}" if self.fused else ""
+            return f"sharded:{self.n_model_shards}{q8}{fz}{r8}"
         if self.pq is not None:
             rot = "+rotated" if self.pq.rotation is not None else ""
             aniso = (f"+aniso={self.pq.anisotropic_threshold:g}"
@@ -627,6 +817,7 @@ class RetrievalService:
                 raise ValueError(
                     f"unknown filter {filter!r}; registered: "
                     f"{sorted(self._filter_masks)}") from None
+        asked = k
         k = self.max_k if k is None else min(k, self.max_k)
         # a growable service's max_k may pass the live size: never return
         # more rows than real items exist now
@@ -640,19 +831,24 @@ class RetrievalService:
         q = np.atleast_2d(np.asarray(vectors, np.float32))
         if q.shape[1] != self._dim:
             raise ValueError(f"query dim {q.shape[1]} != index dim {self._dim}")
-        out_v, out_i = [], []
+        out_v, out_i, retired = [], [], False
         for start in range(0, q.shape[0], self.max_batch):
             chunk = q[start:start + self.max_batch]
             with self._lock:
+                retired = self._retired()
+                if retired:
+                    break
                 self.device_calls += 1
                 self.queries += chunk.shape[0]
                 t0 = time.perf_counter()
-                vals, idxs = self._query(
-                    torch.from_numpy(chunk).to(self.device), fmask)
+                vals, idxs = self._query(self._dispatch(chunk), fmask)
                 vals, idxs = vals[:, :fetch].cpu(), idxs[:, :fetch].cpu()
                 self._lat.append(time.perf_counter() - t0)
             out_v.append(vals.numpy())
             out_i.append(idxs.numpy())
+        if retired:  # a sharded reload committed: ask the new catalog
+            return self._channel.current.topk(vectors, asked, exclude=exclude,
+                                              filter=filter)
         vals = np.concatenate(out_v, axis=0)
         ids = self._ids[np.concatenate(out_i, axis=0)]
         if excl:
@@ -678,6 +874,63 @@ class RetrievalService:
             raise ValueError(f"no {kind!r} encoder registered (have "
                              f"{sorted(self.encoders)})")
         return np.asarray(self.encoders[kind](payload), np.float32)
+
+
+def serve_shard_worker(service: RetrievalService) -> None:
+    """The loop of a sharded service's rank at model index > 0: take
+    rank 0's headers in order and answer each: a query block scanned on
+    this rank's rows and joined to the exchange (the result is rank 0's),
+    a reload (its new shard built on a thread while the old one keeps
+    answering), a reload's commit (the build joined, every rank's success
+    agreed, the new shard swapped in or dropped together), and the stop
+    header, on which it returns."""
+    channel = service._channel
+    if channel is None or channel.front:
+        raise ValueError("serve_shard_worker runs on the ranks of a "
+                         "sharded service past model index 0")
+    current, pending = service, None
+    while True:
+        op, b, d, _, n = channel.recv()
+        if op == OP_STOP:
+            return
+        if op == OP_QUERY:
+            q = channel.queries(None, n, d)[:b].to(current.device)
+            with current._lock:
+                current._query(q)
+        elif op == OP_RELOAD:
+            pending = _build_shard_async(current, channel.path())
+        elif op == OP_COMMIT:
+            built = None
+            if pending is not None:
+                pending[0].join()
+                built = pending[1].get("service")
+            pending = None
+            if channel.agree(built is not None):
+                current = built
+        else:
+            raise RuntimeError(f"unknown shard command {op}")
+
+
+def _build_shard_async(service: RetrievalService, path: str):
+    """(thread, holder): a new shard of ``path``'s catalog with
+    ``service``'s options, built on a thread (no collectives), into
+    ``holder["service"]``; a failure is logged and leaves it empty."""
+    holder: dict = {}
+
+    def build():
+        try:
+            if service.device.type == "cuda":
+                torch.cuda.set_device(service.device)
+            holder["service"] = RetrievalService(
+                EmbeddingIndex.load(path), **service._shard_kwargs,
+                _channel=service._channel)
+        except Exception:
+            log.exception("shard rank %d: reload of %s failed",
+                          service._mesh.rank, path)
+
+    thread = threading.Thread(target=build, daemon=True)
+    thread.start()
+    return thread, holder
 
 
 class QueryBatcher:
@@ -1028,6 +1281,9 @@ class RetrievalHTTPServer(ThreadingHTTPServer):
                     "this server was started from an EmbeddingIndex "
                     "object, not a path: pass 'index' to reload")
             index = EmbeddingIndex.load(path)
+            if self.service._channel is not None:
+                self._reload_sharded(index, os.path.abspath(path))
+                return
             kwargs = dict(self._service_kwargs)
             old, old_batcher = self._serving
             if aux == "reuse":
@@ -1075,10 +1331,51 @@ class RetrievalHTTPServer(ThreadingHTTPServer):
             log.info("reloaded %s: %d items (dim %d, %s)", path, len(index),
                      service.dim, service.mode)
 
+    def _reload_sharded(self, index: EmbeddingIndex, path: str) -> None:
+        """A sharded reload: every rank builds its new shard of ``path``
+        while the old shards answer, then one commit swaps all of them or
+        none (a rank whose build failed drops the reload everywhere, and
+        the old catalog keeps serving). The commit makes the new service
+        the channel's current one, so a query still on its way through the
+        old service (its retired batcher, a handler that read the pair
+        before the swap) is answered by the new catalog."""
+        old, old_batcher = self._serving
+        channel = old._channel
+        with channel.lock:
+            channel.send(OP_RELOAD, n=len(path.encode()))
+            channel.path(path)
+        error = service = None
+        try:
+            service = RetrievalService(index, **old._shard_kwargs,
+                                       _channel=channel)
+        except Exception as e:  # the other ranks must still commit
+            error = e
+        with channel.lock:
+            channel.send(OP_COMMIT)
+            agreed = channel.agree(service is not None)
+            if agreed:
+                channel.current = service
+        if not agreed:
+            raise error or RuntimeError(
+                f"reload of {path} failed on a shard rank; the old catalog "
+                "keeps serving")
+        batcher = (QueryBatcher(service, max_wait_ms=self._max_wait_ms)
+                   if self._coalesce else None)
+        self._serving = (service, batcher)
+        self.index_path = path
+        self.reloads += 1
+        if old_batcher is not None:
+            self._retire_batcher(old_batcher)
+        log.info("reloaded %s: %d items (dim %d, %s)", path, len(index),
+                 service.dim, service.mode)
+
     def server_close(self) -> None:
         super().server_close()
         if self.batcher is not None:
             self.batcher.close()
+        # after a reload in flight: the shard ranks stop after its commit
+        with self._reload_lock:
+            self.service.stop_shards()
 
 
 def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
@@ -1092,7 +1389,8 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
           encoders: Optional[Dict[str, Callable]] = None,
           admin_token: Optional[str] = None,
           device: Optional[Union[str, torch.device]] = None,
-          **options) -> RetrievalHTTPServer:
+          n_model_shards: Optional[int] = None,
+          **options) -> Optional[RetrievalHTTPServer]:
     """Build the service and return a ready (not yet running) HTTP server.
 
     ``index`` is an index file path (``.npz``/``.json``) or an
@@ -1108,7 +1406,13 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
     (``{"text": f, "image_key": g}``, ``serving/encoders.py``) enable raw
     queries, and a reload keeps them. ``options`` are
     :class:`RetrievalService`'s IVF and PQ keywords (``ivf_clusters``,
-    ``nprobe``, ``pq_subspaces``, ``ivf_index_path``, ...)."""
+    ``nprobe``, ``pq_subspaces``, ``ivf_index_path``, ...).
+
+    ``n_model_shards=N`` runs under ``torchrun --nproc_per_node N``, every
+    rank calling ``serve`` with the same arguments: rank 0 gets the HTTP
+    server; every other rank serves its shard in
+    :func:`serve_shard_worker` until rank 0's server closes, then gets
+    None."""
     index_path = index if isinstance(index, str) else None
     if index_path is not None:
         index = EmbeddingIndex.load(index_path)
@@ -1117,8 +1421,12 @@ def serve(index: Union[str, EmbeddingIndex], host: str = "127.0.0.1",
                           fused_bins=fused_bins, quantized=quantized,
                           rescore_int8=rescore_int8,
                           add_capacity=add_capacity, filters=filters,
-                          encoders=encoders, device=device, **options)
+                          encoders=encoders, device=device,
+                          n_model_shards=n_model_shards, **options)
     service = RetrievalService(index, **service_kwargs)
+    if service._channel is not None and not service._channel.front:
+        serve_shard_worker(service)
+        return None
     batcher = QueryBatcher(service, max_wait_ms=max_wait_ms) if coalesce else None
     httpd = RetrievalHTTPServer((host, port), _Handler)
     httpd._configure(index_path, service_kwargs, coalesce, max_wait_ms)
@@ -1212,6 +1520,11 @@ def main(argv=None):
     p.add_argument("--filters_json", default="",
                    help='JSON {"name": ["catalog id", ...]} or a file of it; '
                         "'{}' enables filters with none registered yet")
+    p.add_argument("--n_model_shards", type=int, default=0,
+                   help="shard the catalog's rows over this many ranks, one "
+                        "card each; run under torchrun --nproc_per_node N "
+                        "(exact, --quantized [--rescore_int8] or --fused; "
+                        "not with approx/ivf/pq, filters or add_capacity)")
     p.add_argument("--admin_token", default="")
     p.add_argument("--device", default="cuda")
     # query-side model inference (serving/encoders.py)
@@ -1242,24 +1555,33 @@ def main(argv=None):
             with open(text) as f:
                 text = f.read()
         filters = json.loads(text)
-    serve(args.index, args.host, args.port, args.max_k, args.max_batch,
-          coalesce=not args.no_coalesce, approx=args.approx,
-          recall_target=args.recall_target, fused=args.fused,
-          fused_bins=args.fused_bins, quantized=args.quantized,
-          rescore_int8=args.rescore_int8, add_capacity=args.add_capacity,
-          filters=filters, encoders=enc,
-          ivf_clusters=args.ivf_clusters or None,
-          nprobe=args.nprobe, ivf_iters=args.ivf_iters,
-          ivf_max_cell=args.ivf_max_cell or None,
-          build_train_sample=args.build_train_sample or None,
-          ivf_index_path=args.ivf_index or None,
-          pq_subspaces=args.pq_subspaces or None, pq_codes=args.pq_codes,
-          pq_iters=args.pq_iters, pq_oversample=args.pq_oversample,
-          pq_rotate=args.pq_rotate,
-          pq_anisotropic=args.pq_anisotropic or None,
-          pq_index_path=args.pq_index or None,
-          admin_token=args.admin_token or None,
-          device=args.device).serve_forever()
+    httpd = serve(
+        args.index, args.host, args.port, args.max_k, args.max_batch,
+        coalesce=not args.no_coalesce, approx=args.approx,
+        recall_target=args.recall_target, fused=args.fused,
+        fused_bins=args.fused_bins, quantized=args.quantized,
+        rescore_int8=args.rescore_int8, add_capacity=args.add_capacity,
+        filters=filters, encoders=enc,
+        ivf_clusters=args.ivf_clusters or None,
+        nprobe=args.nprobe, ivf_iters=args.ivf_iters,
+        ivf_max_cell=args.ivf_max_cell or None,
+        build_train_sample=args.build_train_sample or None,
+        ivf_index_path=args.ivf_index or None,
+        pq_subspaces=args.pq_subspaces or None, pq_codes=args.pq_codes,
+        pq_iters=args.pq_iters, pq_oversample=args.pq_oversample,
+        pq_rotate=args.pq_rotate,
+        pq_anisotropic=args.pq_anisotropic or None,
+        pq_index_path=args.pq_index or None,
+        admin_token=args.admin_token or None,
+        n_model_shards=args.n_model_shards or None,
+        device=args.device)
+    if httpd is None:  # a shard rank: its loop ended with rank 0's server
+        return
+    try:
+        httpd.serve_forever()
+    finally:
+        if args.n_model_shards:  # the shard ranks return with it
+            httpd.server_close()
 
 
 if __name__ == "__main__":

@@ -19,13 +19,16 @@ On a mesh (``core/mesh.py``; ``train()`` under ``torch.distributed`` or
 with ``n_model_shards > 1``): ``init_state`` keeps each rank's row-shard
 of both tables, ``make_sharded_train_step`` gathers rows owner-computes
 and sums over the data row's ranks, each carrier updates the rank's shard
-with every data row's gradients, the eval is catalog-sharded
+with every data row's gradients; the dense autograd step
+(``make_train_step`` with a ``mesh``) looks up through the owner-computes
+lookups with autograd, sums each shard's gradient over the data axis and
+runs SGD momentum on the shard; the eval is catalog-sharded
 (``make_sharded_eval_step``; it refuses ``eval_fused_bins``, as the
 reference does), each rank reads its slice of the files and checkpoints
 its shards, and rank 0 exports the whole tables.
 
 Not ported: the TPU's packed table layouts (a TPU layout trick, never
-ported), ``steps_per_call``, and the dense autograd step on a mesh.
+ported) and ``steps_per_call``.
 
 Run: python -m esrecsys_tpu_torch.workloads.playlist \
          --train_pattern 'data/training/*.tfrecord' \
@@ -72,7 +75,6 @@ from esrecsys_tpu_torch.ops.optim import (dense_momentum_update,
                                           momentum_flush, momentum_init,
                                           momentum_settle, sgd_update)
 from esrecsys_tpu_torch.parallel.sharding import gather_tree
-from esrecsys_tpu_torch.parallel.table import shard_rows
 from esrecsys_tpu_torch.retrieval.fused import (binned_affinity_candidates,
                                                 pack_catalog)
 from esrecsys_tpu_torch.retrieval.mips import (NEG_INF, chunked_grouped_topk,
@@ -257,13 +259,8 @@ def init_state(cfg: PlaylistConfig, device=None,
                        else None))
     model.mesh = mesh
     if mesh is not None:
-        if not cfg.sparse_updates:
-            raise ValueError(
-                "a mesh needs the row-sparse step (sparse_updates=True): "
-                "the dense autograd step on a mesh is not ported")
         for table in (model.album_embed, model.artist_embed):
-            table.embedding = nn.Parameter(
-                shard_rows(table.embedding.detach(), mesh))
+            table.shard(mesh)
     if cfg.sparse_updates:
         opt_state = None
         if cfg.momentum:
@@ -349,20 +346,35 @@ def _negatives(cfg: PlaylistConfig, corpus: Batch, for_step, step: int,
 
 
 def make_train_step(model: PlaylistModel, cfg: PlaylistConfig,
-                    corpus: Batch, seed: int = 0):
+                    corpus: Batch, seed: int = 0,
+                    mesh: Optional[Mesh] = None):
     """The dense step: autograd through the table lookups (a row-scatter
     backward into table-shaped gradients) and ``torch.optim.SGD``
     momentum, which follows optax's trace: ``buf = mu * buf + g``,
     ``p -= lr * buf``. ``train_step(state, batch, neg_ids=None)`` updates
     ``state`` in place; ``neg_ids`` injects the step's negative corpus
-    rows (tests feed the ids JAX drew)."""
+    rows (tests feed the ids JAX drew).
+
+    On a ``mesh`` (the reference's GSPMD dense step) the model's lookups
+    are ``parallel/table.py``'s owner-computes ones, differentiable in
+    each rank's shard; ``batch`` is the data row's, which differentiates
+    its share (``1 / n_data``) of the global batch's mean loss; the
+    gradients are summed over the data axis before SGD momentum steps on
+    the shard. Negatives are drawn for the global batch, as in
+    :func:`make_sharded_train_step`, and ``neg_ids`` is the global
+    draw."""
     for_step = _step_generator(model.album_embed.embedding.device, seed)
+    n_data, row = (1, 0) if mesh is None else (mesh.n_data, mesh.data_index)
 
     def train_step(state: TrainState, batch: Batch,
                    neg_ids: Optional[torch.Tensor] = None):
+        b = batch["track_context"].shape[0]
         neg_idx, neg_album, neg_artist = _negatives(
-            cfg, corpus, for_step, state.step,
-            batch["track_context"].shape[0], neg_ids)
+            cfg, corpus, for_step, state.step, b * n_data, neg_ids)
+        if n_data > 1 and not cfg.shared_negatives:
+            mine = slice(row * b, (row + 1) * b)
+            neg_idx = neg_idx[mine]
+            neg_album, neg_artist = neg_album[mine], neg_artist[mine]
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         result = state.params(
@@ -372,10 +384,19 @@ def make_train_step(model: PlaylistModel, cfg: PlaylistConfig,
             neg_idx, neg_album, neg_artist)
         metrics = playlist_loss(result, batch["next_mask"],
                                 cfg.regularization)
-        metrics["loss"].backward()
+        loss = metrics["loss"]
+        (loss / n_data if n_data > 1 else loss).backward()
+        if mesh is not None:
+            with torch.no_grad():
+                for p in state.params.parameters():
+                    if p.grad is not None:
+                        mesh.sum_data(p.grad)
         opt.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            metrics = {k: mesh.mean_data(v) for k, v in metrics.items()}
+        return state, metrics
 
     return train_step
 
@@ -563,11 +584,11 @@ def make_sharded_train_step(model: PlaylistModel, cfg: PlaylistConfig,
 def select_train_step(model: PlaylistModel, cfg: PlaylistConfig,
                       corpus: Batch, seed: int = 0,
                       mesh: Optional[Mesh] = None):
+    if not cfg.sparse_updates:
+        return make_train_step(model, cfg, corpus, seed, mesh=mesh)
     if mesh is not None:
         return make_sharded_train_step(model, cfg, corpus, mesh, seed)
-    if cfg.sparse_updates:
-        return make_sparse_train_step(model, cfg, corpus, seed)
-    return make_train_step(model, cfg, corpus, seed)
+    return make_sparse_train_step(model, cfg, corpus, seed)
 
 
 # ------------------------------------------------------------------ eval

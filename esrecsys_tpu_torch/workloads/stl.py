@@ -17,9 +17,15 @@ readable by either package), ``build_catalog_indexes`` (the artifact
 first, then the latest checkpoint), ``recommend`` (exact top-k through
 ``retrieval/mips.topk_over_matrix``, then the pages) and the CLI.
 
-Not ported: the mesh (``make_mesh_for_batch``, data-parallel batches over
-devices, whose BatchNorm statistics are global-batch ones); the port runs
-on one device (ROADMAP queue 1, multi-device).
+On a data mesh (``train()`` under ``torchrun``: the reference's
+``make_mesh_for_batch`` grid, one model shard): each rank takes its slice
+of the triplets and ``batch_size / ranks`` triplets a step (seed ``seed +
+rank``); BatchNorm's statistics are the global batch's
+(``models/cnn.py``); each rank's loss is its share of the global loss (the
+hinge and norm sums over the global batch size), the data group sums the
+gradients before Adam (``rows_sharded``); checkpoints are per rank, and
+rank 0 exports. With one rank every collective is the identity, and the
+step is the unsharded one bit for bit.
 
 The towers run in bf16 with ``use_bf16`` (params, BatchNorm statistics
 and Adam state float32), else in float32 with TF32 off.
@@ -45,7 +51,9 @@ import torch
 
 from esrecsys_tpu_torch import convert
 from esrecsys_tpu_torch.core import config as config_lib
+from esrecsys_tpu_torch.core import mesh as mesh_lib
 from esrecsys_tpu_torch.core.device import array_to_device, resolve_device
+from esrecsys_tpu_torch.core.mesh import Mesh
 from esrecsys_tpu_torch.core.tracking import make_tracker
 from esrecsys_tpu_torch.data import images as images_lib
 from esrecsys_tpu_torch.models.cnn import STLModel, pin_full_f32
@@ -119,12 +127,14 @@ def model_dtype(cfg: STLConfig) -> torch.dtype:
 
 
 def init_state(cfg: STLConfig, device=None,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               mesh: Optional[Mesh] = None
                ) -> Tuple[STLModel, TrainState]:
     """The model initialised from ``generator`` (default: seeded with
     ``cfg.seed`` on the device) and its train state: Adam's zero ``mu``
     and ``nu`` per parameter, ``opt_state["mu"][name]``. A float32 model
-    on a card pins TF32 off."""
+    on a card pins TF32 off. On a data ``mesh`` every rank draws the same
+    model and its BatchNorm takes global-batch statistics."""
     device = resolve_device(device)
     if device.type == "cuda" and not cfg.use_bf16:
         pin_full_f32()
@@ -132,6 +142,7 @@ def init_state(cfg: STLConfig, device=None,
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
     model = STLModel(cfg.output_size, tuple(cfg.filters), model_dtype(cfg),
                      device=device, generator=generator)
+    model.set_data_mesh(mesh)
     opt = {k: {n: torch.zeros_like(p) for n, p in model.named_parameters()}
            for k in ("mu", "nu")}
     return model, TrainState(step=0, params=model, opt_state=opt)
@@ -149,8 +160,11 @@ def make_train_step(model: STLModel, cfg: STLConfig):
     """One step: the towers in training mode (batch statistics, running
     updates), the loss's gradients by autograd, then ``optax.adam(lr)``
     on every parameter (``ops/optim.adam_update``). Updates ``state`` in
-    place."""
+    place. On a data mesh ``batch`` is this rank's slice, its loss its
+    share of the global loss, and Adam sums the gradients over the data
+    group first."""
     lr = cfg.learning_rate
+    mesh = model.data_mesh
 
     def train_step(state: TrainState, batch: Batch):
         scene, pos, neg = batch
@@ -162,25 +176,31 @@ def make_train_step(model: STLModel, cfg: STLConfig):
             for name, p in model.named_parameters():
                 adam_update(p, p.grad, {k: state.opt_state[k][name]
                                         for k in ("mu", "nu")},
-                            lr=lr, step=state.step)
+                            lr=lr, step=state.step, rows_sharded=mesh)
                 p.grad = None
         state.step += 1
-        return state, {"loss": loss.detach()}
+        loss = loss.detach()
+        return state, {"loss": loss if mesh is None
+                       else mesh.sum_data(loss)}
 
     return train_step
 
 
 def make_eval_step(model: STLModel, cfg: STLConfig):
     """The running statistics' loss and the share of triplets ranked
-    right (pos over neg)."""
+    right (pos over neg); on a data mesh, of the global batch."""
+    mesh = model.data_mesh
 
     def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         scene, pos, neg = batch
         with torch.no_grad():
             pos_score, neg_score, *_ = model(scene, pos, neg, False)
-            return {"loss": losses.triplet_hinge_sum(pos_score, neg_score)
-                    / cfg.batch_size,
-                    "triplet_accuracy": (pos_score > neg_score).float().mean()}
+            loss = losses.triplet_hinge_sum(pos_score, neg_score) \
+                / cfg.batch_size
+            right = (pos_score > neg_score).float().mean()
+            if mesh is not None:
+                loss, right = mesh.sum_data(loss), mesh.mean_data(right)
+            return {"loss": loss, "triplet_accuracy": right}
 
     return eval_step
 
@@ -211,26 +231,40 @@ def train(cfg: STLConfig, tracker=None, device=None, *,
     every ``checkpoint_every_steps`` and at the end. With ``resume`` the
     run continues from the latest checkpoint (its input stream starts
     again from its seed, as the reference's does). ``preemption`` defaults
-    to ``cfg.graceful_shutdown``. Runs on ``device`` (default: the card)."""
+    to ``cfg.graceful_shutdown``. Runs on ``device`` (default: the card).
+
+    Under ``torchrun`` the run is one rank of the data mesh
+    (``make_mesh_for_batch``); ``batch_size`` is the global batch."""
     device = resolve_device(device)
+    mesh = None
+    if (mesh_lib.distributed_init_if_needed(device=device)
+            or mesh_lib.is_initialized()):
+        device = mesh_lib.rank_device(device)
+        mesh = mesh_lib.make_mesh_for_batch(cfg.batch_size)
+    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
+    local_bs = mesh_lib.process_local_batch(cfg.batch_size)
     pairs = _pairs(cfg)
     train_trips, test_trips = generate_triplets(pairs, cfg.num_negatives,
                                                 cfg.seed)
     log.info("%d train / %d test triplets", len(train_trips),
              len(test_trips))
-    model, state = init_state(cfg, device)
-    ckpt = Checkpointer(f"{cfg.work_dir}/checkpoints")
+    model, state = init_state(cfg, device, mesh=mesh)
+    ckpt_dir = f"{cfg.work_dir}/checkpoints"
+    if world > 1:  # a checkpoint per rank: its replicas and statistics
+        ckpt_dir = f"{ckpt_dir}/rank-{rank}-of-{world}"
+    ckpt = Checkpointer(ckpt_dir)
     if cfg.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         log.info("resumed from step %d", state.step)
 
     own_tracker = tracker is None
     if own_tracker:
-        tracker = make_tracker(run_dir=cfg.work_dir,
+        tracker = make_tracker(run_dir=cfg.work_dir if rank == 0 else
+                               f"{cfg.work_dir}/rank-{rank}",
                                config=config_lib.to_dict(cfg))
     train_iter = images_lib.triplet_image_dataset(
-        train_trips, cfg.image_dir, cfg.batch_size, cfg.image_size,
-        seed=cfg.seed)
+        train_trips, cfg.image_dir, local_bs, cfg.image_size,
+        seed=cfg.seed + rank)
     step_fn = make_train_step(model, cfg)
     eval_fn = make_eval_step(model, cfg)
     try:
@@ -241,7 +275,7 @@ def train(cfg: STLConfig, tracker=None, device=None, *,
             num_steps=cfg.max_steps,
             eval_step=lambda st, b: eval_fn(st, to_device(b, device)),
             eval_iter_fn=lambda: images_lib.triplet_image_dataset(
-                test_trips, cfg.image_dir, cfg.batch_size, cfg.image_size,
+                test_trips, cfg.image_dir, local_bs, cfg.image_size,
                 repeat=True, shuffle=False),
             eval_every=cfg.eval_every_steps,
             eval_steps=cfg.eval_steps,
@@ -253,7 +287,7 @@ def train(cfg: STLConfig, tracker=None, device=None, *,
             preemption=(cfg.graceful_shutdown if preemption is None
                         else preemption),
         )
-        if not log_if_preempted(result, log):
+        if not log_if_preempted(result, log) and rank == 0:
             params, batch_stats = convert.stl_params_to_jax(model)
             export_model(cfg.work_dir, "stl", params, step=result.state.step,
                          tracker=tracker, batch_stats=batch_stats,

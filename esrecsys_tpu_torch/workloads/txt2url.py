@@ -12,9 +12,17 @@ the exported ``txt2url`` artifact, on the shared harness
 The step: autograd through the lookups (the row-gather kernel forward,
 a row scatter into table-shaped gradients backward), then
 ``ops/optim.rmsprop_update`` on every parameter (optax's ``rmsprop``
-order over whole tables), then the projections. Not ported:
-``n_model_shards > 1`` (sharded tables raise) and per-process file
-slices.
+order over whole tables), then the projections.
+
+On a mesh (``train()`` under ``torchrun``; ``make_mesh_for_batch`` with
+``n_model_shards`` model shards): the word and URL tables are row-sharded
+(rows padded to the model axis, as the reference pads them) and looked
+up owner-computes with autograd; each data row differentiates its share
+of the global mean loss, RMSprop sums every gradient over the data axis
+first (``rows_sharded``), the projections run on the shards; recall@k
+over all URLs and both probe hooks run ``mips.sharded_scored_topk``
+(padding rows never return); the GloVe transfer fills the sharded word
+table; checkpoints are per rank, and rank 0 exports the whole model.
 
 Run: python -m esrecsys_tpu_torch.workloads.txt2url \
          --txt2url_pattern 'txt2url/part-*' --url2url_pattern 'url_cooc/part-*' \
@@ -35,15 +43,21 @@ import numpy as np
 import torch
 
 from esrecsys_tpu_torch.core import config as config_lib
+from esrecsys_tpu_torch.core import mesh as mesh_lib
 from esrecsys_tpu_torch.core.device import array_to_device, resolve_device
+from esrecsys_tpu_torch.core.mesh import Mesh
 from esrecsys_tpu_torch.core.tracking import make_tracker
 from esrecsys_tpu_torch.data import pipelines
 from esrecsys_tpu_torch.data.vocab import Vocabulary, simple_tokenize
+from esrecsys_tpu_torch.models.layers import TableEmbed, whole_state_dict
 from esrecsys_tpu_torch.models.txt2url import Txt2UrlModel, max_norm_project
 from esrecsys_tpu_torch.ops import losses
 from esrecsys_tpu_torch.ops.metrics import ranking_metrics
 from esrecsys_tpu_torch.ops.optim import exponential_decay, rmsprop_update
-from esrecsys_tpu_torch.retrieval.mips import top_ids_lower_index_first
+from esrecsys_tpu_torch.retrieval.mips import (require_full_f32,
+                                               sharded_scored_topk,
+                                               top_ids_lower_index_first)
+from esrecsys_tpu_torch.convert import params_to_jax
 from esrecsys_tpu_torch.train.checkpoint import Checkpointer
 from esrecsys_tpu_torch.train.export import export_model
 from esrecsys_tpu_torch.train.loop import FitResult, fit
@@ -85,7 +99,7 @@ class Txt2UrlConfig:
     # reference's (B, B) all-pairs losses of both heads)
     text_objective: str = "margin"
     glove_checkpoint: str = ""      # a GloVe checkpoint directory
-    n_model_shards: int = 1         # > 1 (sharded tables) raises
+    n_model_shards: int = 1         # the mesh's model axis (torchrun ranks)
     eval_txt2url_pattern: str = ""  # held-out docs; "" = no eval
     eval_url2url_pattern: str = ""  # defaults to url2url_pattern
     eval_every_steps: int = 10_000
@@ -136,10 +150,44 @@ def learning_rate(cfg: Txt2UrlConfig, step: int) -> float:
     return cfg.learning_rate
 
 
+def _mesh_of(model: Txt2UrlModel) -> Optional[Mesh]:
+    return getattr(model, "mesh", None)
+
+
+def _means(mesh: Optional[Mesh], metrics: Dict[str, torch.Tensor]
+           ) -> Dict[str, torch.Tensor]:
+    """Each metric's mean over the data rows (as it is without a mesh)."""
+    if mesh is None:
+        return metrics
+    return {k: mesh.mean_data(torch.as_tensor(v, dtype=torch.float32))
+            for k, v in metrics.items()}
+
+
+def top_rows(emb: TableEmbed, queries: torch.Tensor, k: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores (P, k), rows (P, k)) of a table's ``k`` largest dot
+    products with ``queries`` (P, D), largest first, ties to the lower row
+    (``lax.top_k``'s order), in full float32; on a sharded table
+    ``mips.sharded_scored_topk`` over the shards (a collective of the data
+    row), its padding rows never returned."""
+    table = emb.embedding
+    require_full_f32(table)
+    if emb.mesh is None:
+        scores = queries @ table.T
+        idx = top_ids_lower_index_first(scores, k)
+        return torch.gather(scores, -1, idx), idx
+    return sharded_scored_topk((queries,), (table,), lambda q, t: q @ t.T,
+                               k, emb.mesh, valid_items=emb.num_embeddings)
+
+
 def make_train_step(model: Txt2UrlModel, cfg: Txt2UrlConfig):
     """The step: both losses, their sum's gradients, RMSprop on every
     parameter at the schedule's rate, then the max-norm projections of the
-    word and URL tables. Updates ``state`` in place."""
+    word and URL tables. Updates ``state`` in place. On a mesh each data
+    row differentiates its share of the global mean loss and RMSprop sums
+    each gradient over the data axis first."""
+    mesh = _mesh_of(model)
+    share = 1.0 / (mesh.n_data if mesh is not None else 1)
 
     def train_step(state: TrainState, batch: Batch):
         params = state.params
@@ -147,12 +195,13 @@ def make_train_step(model: Txt2UrlModel, cfg: Txt2UrlConfig):
             p.grad = None
         text_loss, url_loss = _objective_losses(params, cfg, batch)
         loss = text_loss + url_loss
-        loss.backward()
+        (loss * share if share != 1.0 else loss).backward()
         lr = learning_rate(cfg, state.step)
         nu = state.opt_state["nu"]
         with torch.no_grad():
             for name, p in params.named_parameters():
-                rmsprop_update(p, p.grad, {"nu": nu[name]}, lr=lr)
+                rmsprop_update(p, p.grad, {"nu": nu[name]}, lr=lr,
+                               rows_sharded=mesh)
                 p.grad = None
             for table, cap in ((params.encoder.word_embedding.embedding,
                                 cfg.word_max_norm),
@@ -160,9 +209,9 @@ def make_train_step(model: Txt2UrlModel, cfg: Txt2UrlConfig):
                                 cfg.url_max_norm)):
                 max_norm_project(table, cap, out=table)
         state.step += 1
-        return state, {"loss": loss.detach(),
-                       "text_loss": text_loss.detach(),
-                       "url_loss": url_loss.detach()}
+        return state, _means(mesh, {"loss": loss.detach(),
+                                    "text_loss": text_loss.detach(),
+                                    "url_loss": url_loss.detach()})
 
     return train_step
 
@@ -170,7 +219,9 @@ def make_train_step(model: Txt2UrlModel, cfg: Txt2UrlConfig):
 def make_eval_step(model: Txt2UrlModel, cfg: Txt2UrlConfig):
     """Both objectives' losses and, with ``eval_recall_k``, recall@k and
     MRR@k of each text's own URL among the top k of the whole URL table
-    (ties to the lower row, as ``lax.top_k``)."""
+    (ties to the lower row, as ``lax.top_k``; :func:`top_rows`). On a mesh
+    each metric is the data rows' mean."""
+    mesh = _mesh_of(model)
 
     def eval_step(state: TrainState, batch: Batch) -> Dict[str, float]:
         with torch.no_grad():
@@ -179,42 +230,49 @@ def make_eval_step(model: Txt2UrlModel, cfg: Txt2UrlConfig):
             metrics = {"loss": text_loss + url_loss, "text_loss": text_loss,
                        "url_loss": url_loss}
             if cfg.eval_recall_k:
-                scores = state.params.score_text_vs_all(batch["tokens"])
-                top = top_ids_lower_index_first(scores, cfg.eval_recall_k)
+                _, top = top_rows(state.params.url_embedding,
+                                  state.params.encoder(batch["tokens"]),
+                                  cfg.eval_recall_k)
                 hit = top == batch["url_near_text"][:, None].long()
                 rm = ranking_metrics(
                     hit, torch.ones(hit.shape[0], device=hit.device),
                     cfg.eval_recall_k, "url", ndcg=False)
                 metrics["recall_at_k"] = rm["url_recall"]
                 metrics["mrr_at_k"] = rm["url_mrr"]
-        return metrics
+        return _means(mesh, metrics)
 
     return eval_step
 
 
 def load_glove_word_embeddings(model: Txt2UrlModel,
                                table: np.ndarray) -> None:
-    """Copy a GloVe token table into the word table in place; its rows
-    past the word table's (GloVe pads its tables to a multiple of 128
-    rows) are dropped."""
-    target = model.encoder.word_embedding.embedding
-    if table.shape[1] != target.shape[1] or table.shape[0] < target.shape[0]:
+    """Copy a (whole) GloVe token table into the word table in place; its
+    rows past the word table's (GloVe pads its tables to a multiple of 128
+    rows) are dropped. A sharded word table takes its rows of it (rows
+    past the GloVe table's, the padding to the model axis, keep their
+    init)."""
+    emb = model.encoder.word_embedding
+    target = emb.embedding
+    n = 1 if emb.mesh is None else emb.mesh.n_model
+    rows = range(target.shape[0]) if emb.mesh is None else \
+        emb.mesh.row_range(target.shape[0] * n)
+    if (table.shape[1] != target.shape[1]
+            or table.shape[0] < emb.num_embeddings):
         raise ValueError(f"glove table {table.shape} != word table "
-                         f"{tuple(target.shape)}")
+                         f"{(emb.num_embeddings, target.shape[1])}")
+    stop = min(rows.stop, emb.num_embeddings)
     with torch.no_grad():
-        target.copy_(torch.from_numpy(np.ascontiguousarray(
-            table[:target.shape[0]], np.float32)))
+        target[:max(0, stop - rows.start)].copy_(torch.from_numpy(
+            np.ascontiguousarray(table[rows.start:stop], np.float32)))
 
 
 def glove_checkpoint_table(directory: str) -> Tuple[int, np.ndarray]:
     """(step, token table) of the latest checkpoint of the port's GloVe
-    trainer in ``directory``, under either optimizer."""
-    ckpt = Checkpointer(directory)
-    step = ckpt.latest_step()
-    if step is None:
-        raise FileNotFoundError(f"no checkpoints in {directory}")
-    with np.load(ckpt.path(step)) as z:
-        return step, z["params/token_embedding/embedding"]
+    trainer in ``directory``, under either optimizer, put together from
+    the ranks' shards when a mesh wrote it (``glove.checkpoint_table``)."""
+    from esrecsys_tpu_torch.workloads.glove import checkpoint_table
+
+    return checkpoint_table(directory)
 
 
 def _log_neighbours(kind: str, step: int, names, probes, top_s, top_i):
@@ -231,12 +289,10 @@ def word_nn_hook(token_vocab: Vocabulary, words: Sequence[str], k: int = 10
     index = [token_vocab.embedding_index(w) for w in words]
 
     def hook(state: TrainState, step: int) -> None:
-        table = state.params.encoder.word_embedding.embedding
+        emb = state.params.encoder.word_embedding
         with torch.no_grad():
-            q = table[torch.tensor(index, device=table.device)]
-            scores = q @ table.T
-            top_i = top_ids_lower_index_first(scores, k)
-            top_s = torch.gather(scores, -1, top_i)
+            q = emb(torch.tensor(index, device=emb.embedding.device))
+            top_s, top_i = top_rows(emb, q, k)
         _log_neighbours("word_nn", step,
                         token_vocab.token_from_embedding_index, words,
                         top_s.cpu().numpy(), top_i.cpu().numpy())
@@ -261,12 +317,10 @@ def sentence_nn_hook(token_vocab: Vocabulary, title_vocab: Vocabulary,
         return title_vocab.token(i) if i < len(title_vocab) else "?"
 
     def hook(state: TrainState, step: int) -> None:
-        device = state.params.url_embedding.embedding.device
+        emb = state.params.url_embedding
         with torch.no_grad():
-            scores = state.params.score_text_vs_all(
-                torch.from_numpy(tokens).to(device))
-            top_i = top_ids_lower_index_first(scores, k)
-            top_s = torch.gather(scores, -1, top_i)
+            top_s, top_i = top_rows(emb, state.params.encoder(
+                torch.from_numpy(tokens).to(emb.embedding.device)), k)
         _log_neighbours("sentence_nn", step, name,
                         [repr(s) for s in sentences], top_s.cpu().numpy(),
                         top_i.cpu().numpy())
@@ -276,12 +330,16 @@ def sentence_nn_hook(token_vocab: Vocabulary, title_vocab: Vocabulary,
 
 def init_state(cfg: Txt2UrlConfig, word_vocab_size: int,
                url_vocab_size: int, device=None,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               mesh: Optional[Mesh] = None
                ) -> Tuple[Txt2UrlModel, TrainState]:
     """The model (tables of exactly the vocabulary sizes) initialised from
     ``generator`` (default: seeded with ``cfg.seed`` on the device), and
     its train state: RMSprop's zero ``nu`` per parameter,
-    ``opt_state["nu"][name]``."""
+    ``opt_state["nu"][name]``. With a ``mesh`` the tables' rows are
+    padded to the model axis, every rank draws the whole model from the
+    seed and keeps its rows of both tables (``model.mesh`` names the
+    mesh); ``nu`` is shaped like the rank's parameters."""
     device = resolve_device(device)
     if cfg.text_objective not in OBJECTIVES:
         raise ValueError(f"unknown text_objective {cfg.text_objective!r}")
@@ -289,7 +347,12 @@ def init_state(cfg: Txt2UrlConfig, word_vocab_size: int,
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
     model = Txt2UrlModel(word_vocab_size, url_vocab_size, cfg.word_dim,
                          cfg.rnn_size, cfg.url_dim, cfg.encoder_type,
-                         device=device, generator=generator)
+                         device=device, generator=generator,
+                         rows_multiple=mesh.n_model if mesh else 1)
+    model.mesh = mesh
+    if mesh is not None:
+        model.encoder.word_embedding.shard(mesh)
+        model.url_embedding.shard(mesh)
     nu = {name: torch.zeros_like(p) for name, p in model.named_parameters()}
     return model, TrainState(step=0, params=model, opt_state={"nu": nu})
 
@@ -325,12 +388,24 @@ def train(cfg: Txt2UrlConfig, tracker=None, device=None, *,
     checkpoint (its input stream starts again from its seed).
     ``token_vocab`` and ``title_vocab`` default to the dictionaries'
     files; ``preemption`` to ``cfg.graceful_shutdown``. Runs on
-    ``device`` (default: the card)."""
-    if cfg.n_model_shards > 1:
-        raise NotImplementedError(
-            "n_model_shards > 1 (sharded tables) is not ported yet "
-            "(ROADMAP queue 1, multi-device)")
+    ``device`` (default: the card).
+
+    Under ``torchrun`` (or with ``n_model_shards > 1``, which then needs
+    its ranks: too few raise ``ValueError``) the run is one rank of the
+    reference's ``make_mesh_for_batch`` grid; ``batch_size`` is the global
+    batch."""
     device = resolve_device(device)
+    mesh = None
+    if (mesh_lib.distributed_init_if_needed(device=device)
+            or mesh_lib.is_initialized() or cfg.n_model_shards > 1):
+        mesh_lib.check_ranks(cfg.n_model_shards, "txt2url training")
+        if mesh_lib.is_initialized():
+            device = mesh_lib.rank_device(device)
+        mesh = mesh_lib.make_mesh_for_batch(cfg.batch_size,
+                                            n_model=cfg.n_model_shards)
+    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
+    local_bs = mesh_lib.process_local_batch(cfg.batch_size)
+    host_seed = cfg.seed + rank
     if token_vocab is None:
         token_vocab = Vocabulary.load(cfg.token_dictionary)
     if title_vocab is None:
@@ -338,26 +413,30 @@ def train(cfg: Txt2UrlConfig, tracker=None, device=None, *,
     doc_freq = np.asarray([title_vocab.doc_frequency(i)
                            for i in range(len(title_vocab))], np.float64)
     model, state = init_state(cfg, token_vocab.num_embeddings,
-                              len(title_vocab), device)
+                              len(title_vocab), device, mesh=mesh)
     if cfg.glove_checkpoint:
         step, table = glove_checkpoint_table(cfg.glove_checkpoint)
         load_glove_word_embeddings(model, table)
         log.info("transferred GloVe word embeddings from %s (step %d)",
                  cfg.glove_checkpoint, step)
 
-    ckpt = Checkpointer(f"{cfg.work_dir}/checkpoints")
+    ckpt_dir = f"{cfg.work_dir}/checkpoints"
+    if world > 1:  # a checkpoint per rank: its shards and replicas
+        ckpt_dir = f"{ckpt_dir}/rank-{rank}-of-{world}"
+    ckpt = Checkpointer(ckpt_dir)
     if cfg.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         log.info("resumed from step %d", state.step)
 
     own_tracker = tracker is None
     if own_tracker:
-        tracker = make_tracker(run_dir=cfg.work_dir,
+        tracker = make_tracker(run_dir=cfg.work_dir if rank == 0 else
+                               f"{cfg.work_dir}/rank-{rank}",
                                config=config_lib.to_dict(cfg))
     batches = pipelines.txt2url_batches(
-        cfg.txt2url_pattern, cfg.url2url_pattern, doc_freq, cfg.batch_size,
+        cfg.txt2url_pattern, cfg.url2url_pattern, doc_freq, local_bs,
         cfg.sentence_length, cfg.max_sentences_per_doc,
-        shuffle_buffer=cfg.shuffle_buffer, seed=cfg.seed)
+        shuffle_buffer=cfg.shuffle_buffer, seed=host_seed)
     hooks = []
     if cfg.probe_words:
         hooks.append(word_nn_hook(token_vocab, cfg.probe_words.split(",")))
@@ -366,22 +445,24 @@ def train(cfg: Txt2UrlConfig, tracker=None, device=None, *,
                                       cfg.probe_sentences.split("|"),
                                       cfg.sentence_length))
     step_fn = make_train_step(model, cfg)
+    place = ((lambda b: b) if mesh is not None
+             else (lambda b: to_device(b, device)))
     eval_kwargs = {}
     if cfg.eval_txt2url_pattern:
         eval_fn = make_eval_step(model, cfg)
         eval_kwargs = dict(
-            eval_step=lambda st, b: eval_fn(st, to_device(b, device)),
+            eval_step=lambda st, b: eval_fn(st, place(b)),
             eval_iter_fn=lambda: pipelines.txt2url_batches(
                 cfg.eval_txt2url_pattern,
                 cfg.eval_url2url_pattern or cfg.url2url_pattern, doc_freq,
-                cfg.batch_size, cfg.sentence_length,
+                local_bs, cfg.sentence_length,
                 cfg.max_sentences_per_doc, shuffle_buffer=0,
-                seed=cfg.seed),
+                seed=host_seed),
             eval_every=cfg.eval_every_steps, eval_steps=cfg.eval_steps)
     try:
         result = fit(
             state,
-            lambda st, b: step_fn(st, to_device(b, device)),
+            lambda st, b: step_fn(st, place(b)),
             batches,
             num_steps=cfg.steps_per_epoch * cfg.num_epochs,
             log_every=min(1000, cfg.steps_per_epoch),
@@ -392,15 +473,19 @@ def train(cfg: Txt2UrlConfig, tracker=None, device=None, *,
             hooks=hooks,
             hook_every=cfg.steps_per_epoch,
             examples_per_step=cfg.batch_size,
+            mesh=mesh,
+            device=device,
             preemption=(cfg.graceful_shutdown if preemption is None
                         else preemption),
         )
         if not log_if_preempted(result, log):
-            export_model(cfg.work_dir, "txt2url", result.state.params,
-                         step=result.state.step, tracker=tracker,
-                         metadata=export_metadata(
-                             cfg, token_vocab.num_embeddings,
-                             len(title_vocab)))
+            params = params_to_jax(whole_state_dict(result.state.params))
+            if rank == 0:
+                export_model(cfg.work_dir, "txt2url", params,
+                             step=result.state.step, tracker=tracker,
+                             metadata=export_metadata(
+                                 cfg, token_vocab.num_embeddings,
+                                 len(title_vocab)))
         return result
     finally:
         if own_tracker:

@@ -262,9 +262,9 @@ def test_add_items_over_http_matches_jax(catalog, tmp_path):
     ("ivf_clusters", 8), ("pq_subspaces", 4), ("n_model_shards", 2)])
 def test_unported_options_still_raise_with_add_capacity(catalog, option,
                                                         value):
-    """With add_capacity: the sharded mode is still unported; the IVF
-    modes are ported and refuse growth as the reference does (they grow
-    through a reload); the pq mode grows."""
+    """With add_capacity: the IVF and the sharded modes refuse growth as
+    the reference does (they grow through a reload); the pq mode
+    grows."""
     ids, vecs = catalog
     kw = dict(add_capacity=8, **{option: value})
     if option == "pq_subspaces":
@@ -272,16 +272,11 @@ def test_unported_options_still_raise_with_add_capacity(catalog, option,
                                        device="cpu", pq_codes=32, **kw)
         assert svc.capacity == M + 8 and svc.mode.startswith("pq:S=4")
         return
-    if option == "ivf_clusters":
-        with pytest.raises(ValueError, match="grow via /admin/reload"):
-            tserver.RetrievalService(EmbeddingIndex(ids, vecs),
-                                     device="cpu", **kw)
-        with pytest.raises(ValueError, match="grow via /admin/reload"):
-            jserver.RetrievalService(JaxIndex(ids, vecs), **kw)
-        return
-    with pytest.raises(NotImplementedError, match=option):
-        tserver.RetrievalService(EmbeddingIndex(ids, vecs), device="cpu",
-                                 **kw)
+    with pytest.raises(ValueError, match="grow via /admin/reload"):
+        tserver.RetrievalService(EmbeddingIndex(ids, vecs),
+                                 device="cpu", **kw)
+    with pytest.raises(ValueError, match="grow via /admin/reload"):
+        jserver.RetrievalService(JaxIndex(ids, vecs), **kw)
 
 
 def test_index_reserve_and_extend_match_jax(catalog):

@@ -74,11 +74,14 @@ def test_port_has_the_slice_modules():
                                   "test_torch_jpeg.py", "test_torch_stl.py",
                                   "test_torch_encoders.py",
                                   "test_torch_mesh.py",
-                                  "test_torch_sharded.py"])
+                                  "test_torch_sharded.py",
+                                  "test_torch_sharded_serving.py",
+                                  "test_torch_mesh_workloads.py"])
 def test_the_wikipedia_slice_has_its_parity_tests(name):
     """The ETL chain's, txt2url's, the Shop-the-Look pipeline's, the
-    encoders', and the mesh's and sharded playlist's parity tests stand
-    beside the modules they hold against the JAX package."""
+    encoders', the mesh's, the sharded playlist's, sharded serving's and
+    the mesh workloads' parity tests stand beside the modules they hold
+    against the JAX package."""
     text = (ROOT / "tests" / name).read_text()
     assert "import esrecsys_tpu" in text or "from esrecsys_tpu." in text
     assert "from esrecsys_tpu_torch" in text

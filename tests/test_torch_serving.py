@@ -241,10 +241,11 @@ def test_http_round_trip_matches_jax(catalog):
     ("approx", True), ("ivf_clusters", 16), ("pq_subspaces", 4), ("n_model_shards", 2),
     ("add_capacity", 10), ("encoders", {"text": len})])
 def test_unported_modes_raise(catalog, option, value):
-    """Each reference option that selects a mode the port lacks raises
-    NotImplementedError naming it; approx, add_capacity, ivf_clusters and
-    pq_subspaces are ported now, and construct with the reference's mode
-    and capacity; encoders are ported too, and run on a raw query."""
+    """Every reference option that selects a mode is ported: approx,
+    add_capacity, ivf_clusters and pq_subspaces construct with the
+    reference's mode and capacity; encoders run on a raw query; the
+    sharded mode (``n_model_shards``) raises the reference's own refusal
+    with approx, and in one process it asks for ``torchrun``'s ranks."""
     ids, vecs, _, _ = catalog
     if option == "encoders":
         svc = tserver.RetrievalService(EmbeddingIndex(ids, vecs),
@@ -263,8 +264,13 @@ def test_unported_modes_raise(catalog, option, value):
         assert svc.mode == mode
         assert svc.capacity == M + (value if option == "add_capacity" else 0)
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"'{option}' is not ported yet"):
+    with pytest.raises(ValueError, match="does not compose"):
+        tserver.RetrievalService(EmbeddingIndex(ids, vecs), device="cpu",
+                                 approx=True, **{option: value})
+    with pytest.raises(ValueError, match="does not\n? ?compose"):
+        jserver.RetrievalService(JaxIndex(ids, vecs), approx=True,
+                                 **{option: value})
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         tserver.RetrievalService(EmbeddingIndex(ids, vecs), device="cpu",
                                  **{option: value})
 

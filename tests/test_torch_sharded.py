@@ -270,20 +270,41 @@ def test_one_rank_mesh_equals_the_unsharded_code_bit_for_bit(tmp_path,
 
 
 def test_mesh_check_tool_on_four_ranks(tmp_path):
-    """``tools/mesh_check.py`` (the card's multi-rank check) on a 2x2 gloo
-    mesh at a small width: its sharded eval equals the exact one and its
-    5 sharded steps stay within its bounds of the unsharded ones."""
+    """``tools/mesh_check.py`` (the card's multi-rank check) on 4 gloo
+    ranks at small widths, every path: the sparse step's 2x2 sharded eval
+    equals the exact one and its 5 sharded steps stay within its bounds of
+    the unsharded ones; sharded serving (1x4) in four modes, GloVe and
+    txt2url (2x2), scale_table (1x4), STL (4x1) and the dense step (2x2)
+    pass their checks against the unsharded code."""
     argv = ["--device", "cpu", "--batch_size", "32", "--max_next", "8",
             "--eval_playlists", "16", "--corpus_size", "3000",
             "--num_albums_raw", "900", "--album_buckets", "300",
-            "--num_artists", "500", "--steps", "5", "--profile_steps", "1"]
+            "--num_artists", "500", "--steps", "5", "--profile_steps", "1",
+            "--catalog_items", "2000", "--catalog_dim", "16",
+            "--serve_k", "10", "--serve_reps", "2", "--workload_steps", "2",
+            "--glove_rows", "500", "--glove_dim", "8", "--glove_batch", "64",
+            "--t2u_words", "300", "--t2u_urls", "40", "--t2u_dim", "8",
+            "--t2u_batch", "8", "--scale_rows", "500", "--scale_ids", "64",
+            "--stl_image_size", "32", "--stl_batch", "4",
+            "--stl_filters", "4,8"]
     outs = spawn("job_mesh_check", 4, str(tmp_path / "ranks"), argv,
-                 timeout=120)
+                 timeout=240)
     out = outs[0]
     assert out["ok"] and out["mesh"] == "2x2" and out["backend"] == "gloo"
     assert out["eval"]["scores_equal"] and out["eval"]["id_sets_equal"]
     assert set(out["diffs"]) == {"album table", "album momentum",
                                  "artist table", "artist momentum"}
+    paths = out["paths"]
+    assert set(paths) == {"serving", "glove", "txt2url", "scale_table",
+                          "stl", "dense"}
+    assert all(p["ok"] for p in paths.values()), paths
+    assert paths["serving"]["exact"]["id_sets_equal"]
+    assert paths["serving"]["fused"]["mode"] == \
+        "sharded:4+fused:bins=4096"
+    assert paths["glove"]["mesh"] == paths["txt2url"]["mesh"] == "2x2"
+    assert paths["scale_table"]["mesh"] == "1x4"
+    assert paths["stl"]["mesh"] == "4x1" and paths["stl"]["replicas_equal"]
+    assert paths["dense"]["mesh"] == "2x2"
 
 
 def test_sharded_eval_refuses_the_fused_kernel(tmp_path):

@@ -590,7 +590,7 @@ def test_cli_and_unported_options(corpus, tmp_path):
     assert result.state.step == 2
     assert texport.latest_artifact(wd, "txt2url").endswith(
         "txt2url-00000002.npz")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         t2u.train(t2u.Txt2UrlConfig(n_model_shards=2), device="cpu")
     with pytest.raises(ValueError):
         t2u.init_state(t2u.Txt2UrlConfig(text_objective="nope"), 10, 10,
