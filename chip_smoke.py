@@ -67,7 +67,7 @@ the result line:
                 against exact at least 0.95, latency, breakdown, L, r and
                 kb; one block's select on the card against the CPU, with
                 planted ties); add_capacity 65,536 in the exact, approx,
-                fused and fused int8 modes, 8 adds of 1,024 rows, answers
+                fused and fused int8 modes, 4 adds of 1,024 rows, answers
                 equal to a fresh service on the grown catalog and no
                 buffer reallocated; a live fused server reloaded under
                 traffic to the perturbed catalog (no failed request); a
@@ -86,10 +86,10 @@ the result line:
                 exact; time to first query from prebuilt npz against a
                 build; a live ivf_pq server reloaded under traffic with
                 aux rebuild, then reuse (no failed request); a pq service
-                grown by 8 adds of 1,024 rows equal to one over the grown
+                grown by 4 adds of 1,024 rows equal to one over the grown
                 catalog; serving_bench --structured over the six modes,
-                then the IVF modes with --ivf_max_cell 1024, against their
-                floors; a deploy cycle into a live ivf_pq server with
+                then ivf and ivf+int8 with --ivf_max_cell 1024, against
+                their floors; a deploy cycle into a live ivf_pq server with
                 aux reuse; then scatter_add at the IVF and PQ centroid-sum
                 pile-ups and gather_pool at the IVF candidate shape
                 against their plain versions;
@@ -208,11 +208,27 @@ the result line:
                 unsharded exact eval's; host ms per step of both, and the
                 collectives' share of the sharded step's device time from
                 torch.profiler.
+  17. calibrate - run after the sublinear phase, on its trained catalog:
+                the port's tools at their full widths. retrieval_autotune
+                on the 2,262,292 x 64 catalog (k=500, target 0.95, 256
+                calibration queries, k-means on a 262,144-row sample,
+                queries/s measured on the card), every row's recall and
+                q/s and the build seconds, the recommendation served
+                against the exact top-500 of 64 fresh queries;
+                parity_runs for the four workloads at the tool's widths
+                (playlist D=32 / 20,000 / 5,000 at B=1 and B=2048, GloVe
+                20,000 x 64, STL 32 px, txt2url 2,000 URLs; steps cut);
+                playlist_parity_sweep --mode bayes for 6 runs of 8 steps;
+                scaling_study --mode measure on one NCCL rank; then
+                fused_scan at B=64 over the catalog at L=512 and 8,192,
+                gather_pool at the IVF probe of 64 queries and
+                scatter_add at the 1,024-cell k-means sums against their
+                plain versions, timed against their bounds.
 
 Each main-path phase (train, harness, serve, int8, modes, sublinear, tool,
 lazy, bf16's scale_table runs, glove's train() runs, wiki's chain and its
 train() runs, stl's corpus-to-served-answers path, mesh's sharded steps
-and eval) sets the launch counts
+and eval, calibrate's tools) sets the launch counts
 to 0 just before it and reads them just after.
 A line gives the seconds each phase took. The second-to-last line is the
 kernel table as JSON, the last line ``{"ok": true, "device": {...}}``.
@@ -1950,7 +1966,7 @@ def phase_int8(card: str, ctx: dict) -> dict:
 
 APPROX_FLOOR = 0.95           # approx modes' overlap@500 (reference's target)
 GROWTH_CAPACITY = 65_536      # add_capacity of the growth checks
-GROWTH_ADDS = 8               # adds of GROWTH_ROWS rows each
+GROWTH_ADDS = 4               # adds of GROWTH_ROWS rows each (cut from 8)
 GROWTH_ROWS = 1024
 GROWTH_MODES = (
     ("exact", {}),
@@ -1971,7 +1987,9 @@ BENCH_FLOORS = {"exact": None, "approx": APPROX_FLOOR,
                 "ivf_pq_r8": 0.97}
 SUBLINEAR_MODES = ("ivf", "ivf_quantized", "pq", "ivf_pq", "pq_r8",
                    "ivf_pq_r8")
-BENCH_QUERIES = 512           # serving_bench --queries, cut from 2048
+BENCH_QUERIES = 256           # serving_bench --queries, cut from 2048, 512
+SERVE_TIMED = 10              # timed B=8 calls a mode in the modes and
+#                               sublinear phases (cut from 20)
 BENCH_REPS = 1                # serving_bench --reps, cut from 3
 DEPLOY_CYCLES = 1             # deploy cycles into a live server, cut from 2
 
@@ -2287,8 +2305,9 @@ def phase_modes(card: str, ctx: dict, work: str) -> dict:
             raise AssertionError(f"{mode}: {svc.mode}, {scores.shape}")
         overlap = overlap_at_k(exact._items, queries, ids, ctx["exact_ids"])
         q8 = queries[:8]
-        ms = host_ms(lambda: svc.topk(q8, k=500), 20)
-        wall, busy, top = device_breakdown(lambda: svc.topk(q8, k=500), 20)
+        ms = host_ms(lambda: svc.topk(q8, k=500), SERVE_TIMED)
+        wall, busy, top = device_breakdown(lambda: svc.topk(q8, k=500),
+                                           SERVE_TIMED)
         L, r = approx_reduction_size(262_144, kb, 0.95)
         row = {"overlap": overlap, "topk_ms": ms, "L": L, "r": r, "kb": kb,
                "build_s": build_s, "profiled_ms": wall, "busy_ms": busy,
@@ -2303,26 +2322,33 @@ def phase_modes(card: str, ctx: dict, work: str) -> dict:
             f"{nblk} blocks; built in {build_s:.2f} s; overlap@500 vs exact "
             f"{overlap:.4f} over {len(queries)} queries (floor "
             f"{APPROX_FLOOR}); {svc.resident_bytes_per_item} resident bytes "
-            f"per item; B=8 k=500 topk {ms:.3f} ms (median of 20, host "
-            f"clock); breakdown {wall:.3f} ms per call under the profiler, "
+            f"per item; B=8 k=500 topk {ms:.3f} ms (median of "
+            f"{SERVE_TIMED}, host clock); breakdown {wall:.3f} ms per call "
+            f"under the profiler, "
             f"{split} [{card}]")
         if overlap < APPROX_FLOOR:
             raise AssertionError(f"{mode} overlap@500 {overlap}")
         out["approx"][mode] = row
         del svc
-    out["select"] = check_approx_select(card, exact._items)
+    parts = {"approx": round(time.perf_counter() - t_phase, 1)}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts[name] = round(time.perf_counter() - t0, 1)
+
+    part("select", check_approx_select, card, exact._items)
     # ---- 2. growth, 3. reload under traffic
-    out["growth"] = check_growth(card, index, queries)
-    gc.collect()
-    out["reload"] = check_reload(card, index, queries, work)
-    gc.collect()
-    torch.cuda.empty_cache()
+    part("growth", check_growth, card, index, queries)
+    part("reload", check_reload, card, index, queries, work)
     # ---- 4. the deploy cycles, 5. serving_bench
-    out["deploy"] = check_deploy(card, work)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["bench"] = check_bench(card)["results"]
+    part("deploy", check_deploy, card, work)
+    part("bench", check_bench, card)
+    out["bench"] = out["bench"]["results"]
     torch.cuda.synchronize()
+    log(f"modes seconds per part: {parts}")
     out["launches"] = {n: c.count for n, c in counters.items()}
     out["seconds"] = time.perf_counter() - t_phase
     if min(out["launches"].values()) <= 0:
@@ -2436,8 +2462,9 @@ def serve_sublinear_modes(card: str, ctx: dict, paths: dict) -> dict:
         overlap = overlap_at_k(exact._items, queries, ids, ctx["exact_ids"],
                                scores)
         q8 = queries[:8]
-        ms = host_ms(lambda: svc.topk(q8, k=500), 20)
-        wall, busy, top = device_breakdown(lambda: svc.topk(q8, k=500), 20)
+        ms = host_ms(lambda: svc.topk(q8, k=500), SERVE_TIMED)
+        wall, busy, top = device_breakdown(lambda: svc.topk(q8, k=500),
+                                           SERVE_TIMED)
         out[mode] = {"mode": svc.mode, "overlap": overlap, "topk_ms": ms,
                      "profiled_ms": wall, "busy_ms": busy,
                      "idle_share": None if busy is None else 1 - busy / wall,
@@ -2454,8 +2481,8 @@ def serve_sublinear_modes(card: str, ctx: dict, paths: dict) -> dict:
             f"{len(queries)} queries (at least {int(filled.min())} of 500 "
             f"slots filled); {svc.resident_bytes_per_item} "
             f"resident bytes per item; B=8 k=500 topk {ms:.3f} ms (median "
-            f"of 20, host clock); breakdown {wall:.3f} ms per call under "
-            f"the profiler, {split} [{card}]")
+            f"of {SERVE_TIMED}, host clock); breakdown {wall:.3f} ms per "
+            f"call under the profiler, {split} [{card}]")
         del svc
     return out
 
@@ -2670,14 +2697,16 @@ def check_pq_growth(card: str, ctx: dict, paths: dict, work: str) -> dict:
 
 def check_sublinear_bench(card: str) -> dict:
     """7. serving_bench on its --structured catalog: the six modes, then
-    the IVF modes with --ivf_max_cell 1024, against their floors."""
+    ivf and ivf+int8 with --ivf_max_cell 1024 (the cap's cell table; the
+    PQ modes on it were cut for the script's time), against their
+    floors."""
     from esrecsys_tpu_torch.tools import serving_bench as sb
 
     out = {}
     for name, extra, modes in (
             ("untuned", [], SUBLINEAR_MODES),
             ("max_cell_1024", ["--ivf_max_cell", "1024"],
-             [m for m in SUBLINEAR_MODES if m.startswith("ivf")])):
+             ("ivf", "ivf_quantized"))):
         res = sb.main(["--items", "2262292", "--dim", "64", "--k", "500",
                        "--batch", "256", "--reps", str(BENCH_REPS),
                        "--structured",
@@ -2823,21 +2852,28 @@ def phase_sublinear(card: str, ctx: dict, work: str) -> dict:
         c.reset()
     t_phase = time.perf_counter()
     out = {}
-    st = build_structures(card, ctx["exact"], work)
+    parts = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts[name] = round(time.perf_counter() - t0, 1)
+
+    part("build", build_structures, card, ctx["exact"], work)
+    st = out.pop("build")
     out["build"] = {k: st[k] for k in ("ivf_build_s", "pq_build_s",
                                        "imbalance", "lmax")}
-    out["serve"] = serve_sublinear_modes(card, ctx, st["paths"])
-    out["exactness"] = check_full_width_exactness(card, ctx)
-    out["prebuilt"] = check_prebuilt(card, ctx, st["paths"], work)
-    out["reload"] = check_sublinear_reload(card, ctx, st["paths"], work)
-    out["growth"] = check_pq_growth(card, ctx, st["paths"], work)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["bench"] = check_sublinear_bench(card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["deploy"] = check_sublinear_deploy(card, work)
+    part("serve", serve_sublinear_modes, card, ctx, st["paths"])
+    part("exactness", check_full_width_exactness, card, ctx)
+    part("prebuilt", check_prebuilt, card, ctx, st["paths"], work)
+    part("reload", check_sublinear_reload, card, ctx, st["paths"], work)
+    part("growth", check_pq_growth, card, ctx, st["paths"], work)
+    part("bench", check_sublinear_bench, card)
+    part("deploy", check_sublinear_deploy, card, work)
     torch.cuda.synchronize()
+    log(f"sublinear seconds per part: {parts}")
     out["launches"] = {n: c.count for n, c in counters.items()}
     if min(out["launches"].values()) <= 0:
         raise AssertionError(f"sublinear phase launches: {out['launches']}")
@@ -6200,6 +6236,312 @@ def phase_mesh(card: str, serve_ctx: dict) -> dict:
     return out
 
 
+# ---- the calibrate phase: the tools at their full widths
+CAL_QUERIES = 256             # retrieval_autotune's default calibration set
+CAL_K = 500                   # serving's max_k
+CAL_TARGET = 0.95
+CAL_TRAIN_SAMPLE = 262_144    # --build_train_sample: k-means on a sample
+CAL_BATCH = 64                # the tuner's query batch
+CAL_FUSED_BINS = (512, 8192)  # the bins sweep's ends, checked against plain
+PARITY_EXAMPLES = 512         # playlist examples: 512 B=1 steps, 16 at
+#                               B=2048 (cut from 400,000 by depth)
+PARITY_GLOVE_STEPS = 64       # cut from 20,000 (160 LazyAdam steps)
+PARITY_STL_STEPS = 10         # cut from 600
+PARITY_T2U_STEPS = 20         # cut from 3,000
+BAYES_RUNS = 6                # 5 random picks, then one GP pick
+MEASURE_STEPS = 10
+
+
+def calibrate_autotune(card: str, index) -> dict:
+    """retrieval_autotune on the trained catalog (k=500, target 0.95, 256
+    calibration queries at the reference's noise, throughput measured on
+    the card), and the recommendation served: a RetrievalService with its
+    kwargs over the catalog answers 64 fresh queries at the calibrated
+    recall (less the reference test's slack of 0.07)."""
+    import numpy as np
+
+    from esrecsys_tpu_torch.retrieval.mips import topk_over_matrix
+    from esrecsys_tpu_torch.serving.server import RetrievalService
+    from esrecsys_tpu_torch.tools import retrieval_autotune as ra
+
+    import torch
+
+    vecs = np.ascontiguousarray(index.vectors, np.float32)
+    rng = np.random.default_rng(0)
+    queries = ra.calibration_queries(vecs, CAL_QUERIES, 0.1, rng)
+    t0 = time.perf_counter()
+    res = ra.autotune(vecs, queries, CAL_TARGET, k=CAL_K,
+                      train_sample=CAL_TRAIN_SAMPLE, batch=CAL_BATCH,
+                      measure_throughput=True, device="cuda")
+    seconds = time.perf_counter() - t0
+    rows = res["all_configs"]
+    rec = res["recommended"]
+    if rec is None or not rec["meets_target"] or rec["recall"] < CAL_TARGET:
+        raise AssertionError(f"autotune recommends {rec}")
+    if rows[0]["mode"] != "exact" or rows[0]["recall"] != 1.0:
+        raise AssertionError(f"autotune exact row {rows[0]}")
+    for c in rows:
+        if not 0.0 <= c["recall"] <= 1.0:
+            raise AssertionError(f"autotune row {c}")
+        if c["meets_target"] and not c.get("queries_per_s", 0) > 0:
+            raise AssertionError(f"autotune row without q/s: {c}")
+    modes = {c["mode"] for c in rows}
+    if modes != {"exact", "int8", "fused", "ivf", "ivf_int8", "pq",
+                 "ivf_pq"}:
+        raise AssertionError(f"autotune modes {sorted(modes)}")
+    ivf_flags = next(c["flags"] for c in rows if c["mode"] == "ivf")
+    if "--ivf_clusters 1024" not in ivf_flags:
+        raise AssertionError(f"sqrt-law cells: {ivf_flags}")
+    log(f"autotune on the trained catalog ({res['n_items']} x {res['dim']}, "
+        f"k={CAL_K}, target {CAL_TARGET}, {CAL_QUERIES} queries, build "
+        f"sample {CAL_TRAIN_SAMPLE}): {seconds:.1f} s; builds "
+        f"{res['build_seconds']} s; recommended {rec['mode']} {rec['knob']} "
+        f"recall {rec['recall']} at {rec['queries_per_s']} q/s, flags "
+        f"'{rec['flags']}' [{card}]")
+    log("autotune rows: " + "; ".join(
+        f"{c['mode']} {c['knob']} recall {c['recall']}"
+        + (f" {c['queries_per_s']} q/s" if "queries_per_s" in c else "")
+        + f" {c['scan_bytes_per_query'] / 1e6:.2f} MB/query"
+        for c in rows) + f" [{card}]")
+    # the recommendation served, on fresh queries
+    held = ra.calibration_queries(vecs, 64, 0.1, np.random.default_rng(7))
+    items = torch.from_numpy(vecs).cuda()
+    truth = topk_over_matrix(torch.from_numpy(held).cuda(), items,
+                             CAL_K)[1].cpu().numpy()
+    del items
+    svc = RetrievalService(index, max_k=CAL_K, max_batch=8, device="cuda",
+                           **rec["kwargs"])
+    ids, _ = svc.topk(held, k=CAL_K)
+    del svc
+    got = np.asarray([[index._id2row[x] for x in row] for row in ids])
+    served = ra._recall(got, truth)
+    if served < CAL_TARGET - 0.07:
+        raise AssertionError(f"the recommended {rec['mode']} serves recall "
+                             f"{served} on fresh queries")
+    log(f"autotune recommendation served ({rec['mode']} {rec['flags']}): "
+        f"recall@{CAL_K} "
+        f"{served:.4f} on 64 fresh queries (calibrated {rec['recall']}) "
+        f"[{card}]")
+    return {"result": res, "seconds": seconds, "served_recall": served,
+            "queries": queries}
+
+
+def calibrate_tools(card: str, work: str) -> dict:
+    """parity_runs for the four workloads at the tools' widths (steps cut
+    by depth), playlist_parity_sweep --mode bayes for BAYES_RUNS runs of
+    one run of 8 steps each, scaling_study --mode measure on one NCCL
+    rank."""
+    import math
+
+    from esrecsys_tpu_torch.tools import parity_runs as pr
+    from esrecsys_tpu_torch.tools import playlist_parity_sweep as pps
+    from esrecsys_tpu_torch.tools import scaling_study as ss
+
+    out = {}
+    t0 = time.perf_counter()
+    parity = {
+        "playlist": pr.run_playlist([0], work, examples=PARITY_EXAMPLES,
+                                    device="cuda"),
+        "glove": pr.run_glove([0], work, steps=PARITY_GLOVE_STEPS,
+                              device="cuda"),
+        "stl": pr.run_stl([0], work, steps=PARITY_STL_STEPS, device="cuda"),
+        "txt2url": pr.run_txt2url([0], work, steps=PARITY_T2U_STEPS,
+                                  device="cuda")}
+    for wl, res in parity.items():
+        for name, rows in res.items():
+            for r in rows:
+                vals = [v for k, v in r.items()
+                        if k not in ("seed", "steps", "examples",
+                                     "train_seconds")]
+                if not all(math.isfinite(v) for v in vals):
+                    raise AssertionError(f"parity {wl} {name}: {r}")
+    ref = parity["playlist"]["reference_shape"][0]
+    if (ref["steps"], parity["playlist"]["fast"][0]["steps"]) != (512, 16):
+        raise AssertionError(f"parity playlist steps: {parity['playlist']}")
+    out["parity"] = parity
+    out["parity_s"] = time.perf_counter() - t0
+    ref_ms = ref["train_seconds"] * 1e3 / ref["steps"]
+    log(f"parity_runs (seed 0; playlist 512 reference steps at B=1 and 16 "
+        f"at B=2048, GloVe {PARITY_GLOVE_STEPS} / "
+        f"{int(PARITY_GLOVE_STEPS * 2.5)} steps at 20,000 x 64, STL "
+        f"{PARITY_STL_STEPS} steps at 32 px, txt2url {PARITY_T2U_STEPS} "
+        f"steps over 2,000 URLs): {out['parity_s']:.1f} s; "
+        + "; ".join(f"{wl} {name} {rows[0]}" for wl, res in parity.items()
+                    for name, rows in res.items())
+        + f"; the reference playlist step {ref_ms:.2f} ms on the host "
+        f"clock, so 400,000 take about {ref_ms * 400:.0f} s [{card}]")
+    t0 = time.perf_counter()
+    bay = pps.bayes(os.path.join(work, "bayes"), examples=1,
+                    max_runs=BAYES_RUNS, device="cuda")
+    out["bayes_s"] = time.perf_counter() - t0
+    if len(bay["runs"]) != BAYES_RUNS or \
+            not math.isfinite(bay["best"]["track_recall@500"]):
+        raise AssertionError(f"bayes sweep: {bay}")
+    out["bayes"] = bay
+    log(f"playlist_parity_sweep --mode bayes: {BAYES_RUNS} runs of 8 steps "
+        f"(5 random, then one GP-EI pick) in {out['bayes_s']:.1f} s; runs "
+        + "; ".join(f"{r['overrides']} -> {r['track_recall@500']:.4f}"
+                    for r in bay["runs"]) + f" [{card}]")
+    t0 = time.perf_counter()
+    meas = ss.run_measure_mode(MEASURE_STEPS, None, device="cuda",
+                               procs=[1])
+    out["measure_s"] = time.perf_counter() - t0
+    row = meas["rows"][0]["per_process"][0]
+    if not (row["step_ms"] > 0 and row["processes"] == 1):
+        raise AssertionError(f"scaling measure: {meas}")
+    out["measure"] = meas
+    log(f"scaling_study --mode measure on one NCCL rank (D=32, 20,000 "
+        f"buckets, B=1024, N=128 shared, M=16): {row['step_ms']:.3f} ms a "
+        f"step, {row['global_examples_per_s']:.0f} examples/s; "
+        f"{out['measure_s']:.1f} s with the worker's start [{card}]")
+    return out
+
+
+def calibrate_kernels(card: str, index, queries, tuned: dict) -> dict:
+    """The three kernels of the tools' path at their shapes, against their
+    plain versions: fused_scan at B=64 over the trained catalog at the
+    bins sweep's ends (L=512 and 8,192); gather_pool at the IVF probe of
+    64 queries over 1,024 cells (the first chunk of the widest nprobe the
+    tuner tried, bit-equal); scatter_add at the k-means cell sums of an
+    IVF built as the tuner builds it (262,144 sampled rows onto 1,024 x
+    64, the pile-up bound of the sublinear phase)."""
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.kernels import gather_pool as gp
+    from esrecsys_tpu_torch.kernels import scatter_add as sa
+    from esrecsys_tpu_torch.kernels.fused_scan import (fused_scan_cuda,
+                                                       fused_scan_plain)
+    from esrecsys_tpu_torch.retrieval.fused import pack_catalog
+    from esrecsys_tpu_torch.retrieval.ivf import (IVFIndex, _chunks,
+                                                  _probe_candidates,
+                                                  kmeans_assign)
+
+    items = torch.from_numpy(np.ascontiguousarray(index.vectors,
+                                                  np.float32)).cuda()
+    n, D = items.shape
+    qf = torch.from_numpy(queries[:CAL_BATCH]).cuda()
+    qb = qf.to(torch.bfloat16)
+    errs, timed = {"fused_scan": 0.0}, {}
+    for L in CAL_FUSED_BINS:
+        packed = pack_catalog(items, L)
+        kv, ki = fused_scan_cuda(qb, packed, L, n)
+        pv, pi = fused_scan_plain(qb, packed, L, n)
+        torch.cuda.synchronize()
+        err, ties, _ = compare_candidates(qb, packed, kv, ki, pv, pi)
+        errs["fused_scan"] = max(errs["fused_scan"], err)
+        ms = cuda_ms(lambda: fused_scan_cuda(qb, packed, L, n), 20)
+        plain_ms = cuda_ms(lambda: fused_scan_plain(qb, packed, L, n), 1,
+                           warmup=0)
+        mp = packed.shape[1]
+        moved = D * mp * 2 + CAL_BATCH * D * 2 + CAL_BATCH * 2 * L * 8
+        flops = 2 * CAL_BATCH * D * mp
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        timed[f"fused_scan_B64_L{L}"] = {
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+        log(f"kernel fused_scan at the autotuner's shape (B={CAL_BATCH}, "
+            f"D={D}, Mp={mp}, L={L}): ok, max_abs_err {err:.3g}, near-tie "
+            f"id slots {ties}; {ms:.4f} ms (mean of 20, CUDA events), "
+            f"plain {plain_ms:.1f} ms, bound "
+            f"{timed[f'fused_scan_B64_L{L}']['bound_ms']:.4f} ms by "
+            f"{timed[f'fused_scan_B64_L{L}']['bound_by']} [{card}]")
+        del packed, kv, ki, pv, pi
+    # the k-means cell sums of the tuner's IVF build: the sample it trains
+    # on (kmeans' generator), assigned to the built centroids
+    ivf = IVFIndex.build(items, 1024, iters=10, train_sample=CAL_TRAIN_SAMPLE)
+    cent = torch.from_numpy(ivf.centroids).cuda()
+    sample = torch.randperm(n, generator=torch.Generator().manual_seed(0))[
+        :CAL_TRAIN_SAMPLE].cuda()
+    train = items[sample]
+    ids = kmeans_assign(train, cent).to(torch.int32)
+    table = torch.zeros((1024, D), device="cuda")
+    k = sa.scatter_add_cuda(table.clone(), ids, train)
+    p = sa.scatter_add_plain(table.clone(), ids, train)
+    counts = torch.bincount(ids.long(), minlength=1024)
+    abs_sum = sa.scatter_add_plain(table.clone(), ids, train.abs())
+    torch.cuda.synchronize()
+    bound = float(8 * counts.max().float().sqrt()
+                  * torch.finfo(torch.float32).eps * abs_sum.max())
+    s_err = float((k - p).abs().max())
+    if s_err > bound:
+        raise AssertionError(f"scatter_add at the 1,024-cell sums: err "
+                             f"{s_err} over {bound}")
+    _, s_calls, _, s_bound = row_kernel_calls(table, ids, train)
+    timed["scatter_add_kmeans_1024"] = dict(zip(
+        ("ms", "plain_ms", "library_ms"), map(cold_ms, s_calls)),
+        bound_ms=s_bound, bound_by="bytes")
+    log(f"kernel scatter_add at the autotuner's k-means cell sums "
+        f"({CAL_TRAIN_SAMPLE} rows onto 1024 x {D}; {int(counts.max())} on "
+        f"the fullest cell): max_abs_err {s_err:.3g} (bound {bound:.3g}); "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in
+                    timed["scatter_add_kmeans_1024"].items()
+                    if k_ != "bound_by") + f" ms (L2 flushed) [{card}]")
+    del k, p, abs_sum, train
+    # the IVF probe's gather: the first chunk ivf_topk cuts from 64 queries
+    # at the widest nprobe the tuner tried
+    lmax = ivf.bucket_ids.shape[1]
+    nprobe = max(c["knob"]["nprobe"] for c in tuned["all_configs"]
+                 if c["mode"].startswith("ivf"))
+    chunk = _chunks(CAL_BATCH, nprobe * lmax, D)[0]
+    _, _, safe = _probe_candidates(qf[chunk], cent,
+                                   torch.from_numpy(ivf.bucket_ids).cuda(),
+                                   nprobe)
+    gids = safe.reshape(-1).to(torch.int32).contiguous()
+    gk = gp.gather_pool_cuda(items, gids[:, None], False, -1)
+    gplain = gp.gather_pool_plain(items, gids[:, None], False, -1)
+    torch.cuda.synchronize()
+    if not torch.equal(gk, gplain):
+        raise AssertionError("gather_pool at the autotuner's probe differs")
+    del gk, gplain
+    g_calls, _, g_bound, _ = row_kernel_calls(
+        items, gids, torch.empty((gids.shape[0], D), device="meta"))
+    timed["gather_pool_probe_B64"] = dict(zip(
+        ("ms", "plain_ms", "library_ms"), map(cold_ms, g_calls)),
+        bound_ms=g_bound, bound_by="bytes")
+    width = len(range(CAL_BATCH)[chunk])
+    log(f"kernel gather_pool at the autotuner's IVF probe ({width} of "
+        f"{CAL_BATCH} queries a chunk x nprobe {nprobe} x "
+        f"Lmax {lmax} = {gids.shape[0]} rows of {D} floats): bit-equal; "
+        + ", ".join(f"{k_} {v:.4f}" for k_, v in
+                    timed["gather_pool_probe_B64"].items()
+                    if k_ != "bound_by") + f" ms (L2 flushed) [{card}]")
+    return {"errs": {**errs, "gather_pool": 0.0, "scatter_add": s_err},
+            "timed": timed}
+
+
+def phase_calibrate(card: str, serve_ctx: dict) -> dict:
+    """The tools at their full widths: retrieval_autotune on the trained
+    catalog, parity_runs for the four workloads, the bayes sweep of
+    playlist_parity_sweep, scaling_study --mode measure on one NCCL rank;
+    the launch counts read around them; then the three kernels of the
+    path at the tools' shapes against their plain versions."""
+    import torch
+
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    out = {"autotune": calibrate_autotune(card, serve_ctx["index"])}
+    with tempfile.TemporaryDirectory() as work:
+        out.update(calibrate_tools(card, work))
+    torch.cuda.synchronize()
+    out["launches"] = _all_launches()
+    out["path_s"] = time.perf_counter() - t0
+    for k in ("fused_scan", "gather_pool", "scatter_add"):
+        if out["launches"][k] <= 0:
+            raise AssertionError(f"the calibrate path never launched {k}")
+    log(f"calibrate path launches: {out['launches']} (the autotuner's fused "
+        f"rows: fused_scan; IVF builds and probes: scatter_add, "
+        f"gather_pool; the parity runs and the sweep: both row kernels) "
+        f"[{card}]")
+    out["kernels"] = calibrate_kernels(card, serve_ctx["index"],
+                                       out["autotune"].pop("queries"),
+                                       out["autotune"]["result"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def new_path_instantiations(bf16_res: dict, glove_res: dict, g_err: float,
                             s_err: float):
     """(per kernel, per instantiation: the bf16 and glove paths' launches
@@ -6291,6 +6633,7 @@ def main() -> int:
             sub_res = timed("sublinear", phase_sublinear, card, ctx, work)
             serve_ctx = {"index": ctx["index"], "queries": ctx["queries"]}
             del ctx
+        cal_res = timed("calibrate", phase_calibrate, card, serve_ctx)
         tool_res = timed("tool", phase_tool, card)
         lazy_res = timed("lazy", phase_lazy, card, train_res)
         bf16_res = timed("bf16", phase_bf16, card)
@@ -6307,6 +6650,8 @@ def main() -> int:
     train_res["scatter_add"]["max_abs_err"] = max(s_err, lazy_res["big_err"])
     aff = train_res["fused_affinity"]
     aff["max_abs_err"] = max(a_err, aff["max_abs_err"])
+    cal_errs, cal_timed = (cal_res["kernels"]["errs"],
+                           cal_res["kernels"]["timed"])
     rows = [{
         "name": "fused_scan", "route": "cuda",
         "source": "esrecsys_tpu_torch/csrc/fused_scan.cu",
@@ -6314,14 +6659,18 @@ def main() -> int:
         "launches": main_res["launches"]
         + modes_res["launches"]["fused_scan"]
         + stl_res["launches"]["fused_scan"]
-        + mesh_res["launches"]["fused_scan"],
+        + mesh_res["launches"]["fused_scan"]
+        + cal_res["launches"]["fused_scan"],
         "max_abs_err": max(max_err, stl_res["errs"]["fused_scan"],
-                           mesh_res["shards"]["errs"]["fused_scan"]),
+                           mesh_res["shards"]["errs"]["fused_scan"],
+                           cal_errs["fused_scan"]),
         "ms": main_res["ms"], "plain_ms": main_res["plain_ms"],
         "bound_ms": main_res["bound_ms"], "bound_by": main_res["bound_by"],
         "library_ms": None,
         "shard_shape": {"rps": mesh_res["shards"]["rps"],
-                        **mesh_res["shards"]["timed"]["fused_scan"]}}]
+                        **mesh_res["shards"]["timed"]["fused_scan"]},
+        "autotune_shapes": {k: v for k, v in cal_timed.items()
+                            if k.startswith("fused_scan")}}]
     new_paths, new_launches = new_path_instantiations(bf16_res, glove_res,
                                                       g_err, s_err)
     for name, replaces in (
@@ -6343,10 +6692,12 @@ def main() -> int:
             + new_launches.get(name, 0)
             + wiki_res["launch_totals"].get(name, 0)
             + stl_res["launches"][name]
-            + mesh_res["launches"][name],
+            + mesh_res["launches"][name]
+            + cal_res["launches"][name],
             "max_abs_err": max(
                 r["max_abs_err"], stl_res["errs"].get(name, 0.0),
                 mesh_res["shards"]["errs"].get(name, 0.0),
+                cal_errs.get(name, 0.0),
                 *((e[wiki_err] for e in wiki_res["errs"].values())
                   if wiki_err is not None else ())),
             "ms": r["ms"],
@@ -6355,6 +6706,9 @@ def main() -> int:
         if inst:
             row["instantiations"] = inst
         if name in ("gather_pool", "scatter_add"):
+            # at the autotuner's shapes (the B=64 probe, the 1,024 cells)
+            row["autotune_shape"] = next(v for k, v in cal_timed.items()
+                                         if k.startswith(name))
             # at the mesh's shard shapes (GloVe's and the URL table's)
             row["shard_shapes"] = {
                 what: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms"),

@@ -141,12 +141,42 @@ def collective_device() -> torch.device:
     return torch.device("cpu")
 
 
+class CollectiveBytes:
+    """Bytes the mesh's collectives return per kind (``all-reduce``,
+    ``reduce``, ``broadcast``, ``all-gather``): each collective over a
+    group of more than one rank adds the size of its output, as the
+    reference's scaling study sums the output bytes of the partitioned
+    program's collectives. ``reset`` and read like a kernel's
+    ``LaunchCounter``; a count is one Python add, with no
+    synchronisation."""
+
+    def __init__(self) -> None:
+        self.bytes: Dict[str, int] = {}
+        self.count: Dict[str, int] = {}
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.bytes[kind] = self.bytes.get(kind, 0) + nbytes
+        self.count[kind] = self.count.get(kind, 0) + 1
+
+    def reset(self) -> None:
+        self.bytes = {}
+        self.count = {}
+
+
+COLLECTIVE_BYTES = CollectiveBytes()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _gather(t: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     if group is None or size == 1:
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(size)]
     dist.all_gather(parts, t, group=group)
+    COLLECTIVE_BYTES.add("all-gather", size * _nbytes(t))
     return torch.cat(parts, dim=dim)
 
 
@@ -201,12 +231,16 @@ class Mesh:
         """All-reduce SUM over the data row's shards, in place."""
         if self.model_group is not None:
             dist.all_reduce(t, group=self.model_group)
+            if self.n_model > 1:
+                COLLECTIVE_BYTES.add("all-reduce", _nbytes(t))
         return t
 
     def sum_data(self, t: torch.Tensor) -> torch.Tensor:
         """All-reduce SUM over the replicas of this shard, in place."""
         if self.data_group is not None:
             dist.all_reduce(t, group=self.data_group)
+            if self.n_data > 1:
+                COLLECTIVE_BYTES.add("all-reduce", _nbytes(t))
         return t
 
     def mean_data(self, t: torch.Tensor) -> torch.Tensor:
@@ -215,6 +249,7 @@ class Mesh:
             return t
         t = t.clone()
         dist.all_reduce(t, group=self.data_group)
+        COLLECTIVE_BYTES.add("all-reduce", _nbytes(t))
         return t / self.n_data
 
     def reduce_model_to(self, t: torch.Tensor, j: int) -> torch.Tensor:
@@ -222,6 +257,8 @@ class Mesh:
         index ``j``, in place (the other ranks' ``t`` is scratch)."""
         if self.model_group is not None:
             dist.reduce(t, dst=self.model_peer(j), group=self.model_group)
+            if self.n_model > 1:
+                COLLECTIVE_BYTES.add("reduce", _nbytes(t))
         return t
 
     def broadcast_model(self, t: torch.Tensor, j: int = 0) -> torch.Tensor:
@@ -230,12 +267,16 @@ class Mesh:
         receives the values)."""
         if self.model_group is not None:
             dist.broadcast(t, src=self.model_peer(j), group=self.model_group)
+            if self.n_model > 1:
+                COLLECTIVE_BYTES.add("broadcast", _nbytes(t))
         return t
 
     def min_model(self, t: torch.Tensor) -> torch.Tensor:
         """All-reduce MIN over the data row's shards, in place."""
         if self.model_group is not None:
             dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.model_group)
+            if self.n_model > 1:
+                COLLECTIVE_BYTES.add("all-reduce", _nbytes(t))
         return t
 
     def local(self) -> "Mesh":

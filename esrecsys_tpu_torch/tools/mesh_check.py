@@ -46,6 +46,10 @@ rank 0 also runs the unsharded step on the whole batches. Checks:
     ``lr`` times its momentum). The share of elements off by more than
     1e-6 is reported beside them.
 
+With ``--allreduce_mib N`` it also times one all-reduce of N MiB over
+every rank and reports its bus bandwidth (``allreduce``); ``--paths ""``
+runs that alone.
+
 Measures the host ms per step (or call) of each sharded path on every
 card and of the unsharded one on rank 0's, and, from ``torch.profiler``
 on rank 0, the device time of each sharded path and the NCCL kernels'
@@ -131,6 +135,21 @@ def _nccl_share(fn, reps: int, device: torch.device, rank0: bool) -> dict:
     nccl = sum(v for k, v in rows if "nccl" in k.lower())
     return {**out, "busy_ms": busy, "nccl_ms": nccl,
             "nccl_share": nccl / busy if busy else None}
+
+
+def _allreduce_bandwidth(mib: int, reps: int, device: torch.device) -> dict:
+    """One all-reduce SUM of ``mib`` MiB of float32 over every rank: host
+    ms per call over ``reps`` calls after 5 warm-up calls, the algorithm
+    bandwidth (bytes over time) and the bus bandwidth (times 2 (n - 1) /
+    n: what each link carries in a ring)."""
+    n = dist.get_world_size()
+    t = torch.zeros(mib * (1 << 20) // 4, device=device)
+    for _ in range(5):
+        dist.all_reduce(t)
+    ms = _timed(lambda: dist.all_reduce(t), reps, device)
+    alg = t.numel() * 4 / (ms / 1e3)
+    return {"mib": mib, "ranks": n, "reps": reps, "ms": ms,
+            "algbw_GBps": alg / 1e9, "busbw_GBps": alg * 2 * (n - 1) / n / 1e9}
 
 
 def _share(a: torch.Tensor, b: torch.Tensor, rows: int = 1 << 24) -> tuple:
@@ -536,6 +555,9 @@ def main(argv: Optional[list] = None) -> dict:
     p.add_argument("--stl_image_size", type=int, default=512)
     p.add_argument("--stl_batch", type=int, default=16)
     p.add_argument("--stl_filters", default="16,32,64,128")
+    p.add_argument("--allreduce_mib", type=int, default=0,
+                   help="> 0: also time one all-reduce of this many MiB "
+                        "over every rank (its bus bandwidth)")
     args = p.parse_args(argv)
     paths = [x for x in args.paths.split(",") if x]
     unknown = sorted(set(paths) - set(PATHS))
@@ -588,6 +610,9 @@ def main(argv: Optional[list] = None) -> dict:
            "backend": dist.get_backend(), "card": card_line(device),
            "batch_size": args.batch_size, "steps": args.steps}
     ok = True
+    if args.allreduce_mib:
+        out["allreduce"] = _allreduce_bandwidth(args.allreduce_mib, 20,
+                                                device)
     if "sparse" in paths:
         model_s, state_s = pl.init_state(cfg, device, mesh=mesh)
         if rank0:

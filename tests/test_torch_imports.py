@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no file of ``esrecsys_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX, its libraries, TensorFlow, protobuf, an
 image library (PIL, OpenCV, imageio, torchvision: the card's machine has
-none), or the JAX package."""
+none), a YAML library (it has none either), or the JAX package."""
 
 import ast
 import os
@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "esrecsys_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "esrecsys_tpu",
              "tensorflow", "google.protobuf", "PIL", "cv2", "imageio",
-             "torchvision")
+             "torchvision", "yaml")
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
                  for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 
@@ -87,6 +87,27 @@ def test_the_wikipedia_slice_has_its_parity_tests(name):
     assert "from esrecsys_tpu_torch" in text
 
 
+TOOLS = ("tools/sweep.py", "tools/retrieval_autotune.py",
+         "tools/parity_runs.py", "tools/playlist_parity_sweep.py",
+         "tools/scaling_study.py")
+
+
+@pytest.mark.parametrize("rel", TOOLS)
+def test_the_tools_are_checked(rel):
+    """The last tools ported (sweeps, the retrieval autotuner, the parity
+    runs and the scaling study) are among the checked sources, beside
+    their parity tests, and read no spec file through a YAML library."""
+    assert f"esrecsys_tpu_torch/{rel}" in SOURCES
+    name = rel.split("/")[1][:-3]
+    test = {"sweep": "sweep", "retrieval_autotune": "autotune",
+            "parity_runs": "parity_runs",
+            "playlist_parity_sweep": "parity_runs",
+            "scaling_study": "scaling"}[name]
+    text = (ROOT / "tests" / f"test_torch_{test}.py").read_text()
+    assert f"esrecsys_tpu_torch.tools import {name}" in text or \
+        f"esrecsys_tpu_torch.tools.{name}" in text
+
+
 @pytest.mark.parametrize("rel", SOURCES)
 def test_no_jax_or_reference_import(rel):
     bad = [m for m in _imported_modules(ROOT / rel) if _forbidden(m)]
@@ -131,7 +152,12 @@ def test_import_leaves_jax_unloaded():
             "esrecsys_tpu_torch.retrieval.html, "
             "esrecsys_tpu_torch.tools.random_recommender, "
             "esrecsys_tpu_torch.etl.fetch_images, "
-            "esrecsys_tpu_torch.serving.encoders; "
+            "esrecsys_tpu_torch.serving.encoders, "
+            "esrecsys_tpu_torch.tools.sweep, "
+            "esrecsys_tpu_torch.tools.retrieval_autotune, "
+            "esrecsys_tpu_torch.tools.parity_runs, "
+            "esrecsys_tpu_torch.tools.playlist_parity_sweep, "
+            "esrecsys_tpu_torch.tools.scaling_study; "
             "print(sorted(m for m in sys.modules if any(m == f or "
             f"m.startswith(f + '.') for f in {FORBIDDEN!r})))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
