@@ -11,7 +11,15 @@ the result line:
                 source, all started together;
   3. kernels  - each kernel against its plain PyTorch version on the card,
                 at ragged shapes, edge cases (ties, one repeated id, empty
-                batches) and the main path's full shapes: the int8 fused
+                batches) and the main path's full shapes: the bf16 fused
+                scan at B 1-256 (one CTA, whole and ragged clusters of
+                query tiles) and L 128, 512 and 4,096 with and without a
+                mask and a bound inside a block, planted exact ties at B=8
+                and 64, the runner-up sequence (v, v, then 2v in bins 3,
+                5 and L-1: scored, masked, past the bound) at B=8 and 64
+                and over the 2,262,292-row catalog, then its times at B=8,
+                64 and 256 and L=512, 4,096 and 8,192 beside its bound;
+                the int8 fused
                 scan at B=8, 13 and 64 over the full 2,265,088-column
                 catalog with planted copies of one vector, and at B=8
                 with a planted runner-up sequence (v, v, then 2v in one
@@ -278,6 +286,11 @@ FUSED_SCAN_INT8_PREVIOUS_MS = 0.1635
 # element) at the step's shapes, L2 flushed, mean of the two tables: PERF.md,
 # NVIDIA H100 80GB HBM3 at 700 W; logged beside the new time, not re-run
 SCATTER_ADD_PREVIOUS_MS = 0.01561
+# fused_scan against its plain version at these batches: one query tile,
+# one cluster of tiles, eight, and more clusters with the last one short
+SCAN_BATCHES = (1, 8, 9, 13, 57, 64, 65, 200, 256)
+# fused_scan timed at these batches and bins over a 2,262,292-row catalog
+SCAN_TIMED = ((8, 64, 256), (512, 4096, 8192))
 STEPS = 20                    # training steps of the main path
 K_STEPS = 5                   # steps compared, kernels against plain
 # the harness phase's data set: packed shards of synthetic playlists at the
@@ -421,11 +434,138 @@ def compare_candidates(q, packed, kv, ki, pv, pi, scales=None):
                         lambda s: TOL + TOL * s.abs())
 
 
-def phase_kernels(card: str) -> float:
+def runner_up_items(gen, M: int, D: int, L: int, bins, B: int = 8):
+    """A random catalog of M float32 items where each of ``bins`` holds one
+    vector v in blocks 0 and 1 and 2v in block 2, with B queries near v:
+    every query scores 2v first and the block-1 copy of v second under the
+    sequential fold (a merge of per-block top-2 lists by lowest id would
+    keep the block-0 copy). Returns (q (B, D) bf16, items)."""
+    import torch
+
+    items = torch.randn(M, D, generator=gen, device="cuda")
+    v = 3 * torch.randn(D, generator=gen, device="cuda")
+    for j in bins:
+        items[j] = items[j + L] = v
+        items[j + 2 * L] = 2 * v
+    q = v + torch.randn(B, D, generator=gen, device="cuda")
+    return q.to(torch.bfloat16), items
+
+
+def check_runner_up(ki, L: int, bins, lead: int, what: str) -> None:
+    """The planted bins keep (v or 2v at block ``lead``, block-1 v)."""
+    for j in bins:
+        want = (j + lead * L, j + L)
+        got = (ki[:, j], ki[:, L + j])
+        if not all(bool((g == w).all()) for g, w in zip(got, want)):
+            raise AssertionError(f"runner-up sequence ({what}), bin {j}: "
+                                 f"ids {got[0].tolist()}, {got[1].tolist()}, "
+                                 f"want {want}")
+
+
+def scan_against_plain(card: str, q, packed, L: int, bound: int, mask,
+                       what: str, dup: bool = False) -> tuple:
+    """fused_scan against fused_scan_plain on one input; logs the case.
+    Returns (max abs error, kernel ids)."""
     import torch
 
     from esrecsys_tpu_torch.kernels.fused_scan import (fused_scan_cuda,
                                                        fused_scan_plain)
+
+    kv, ki = fused_scan_cuda(q, packed, L, bound, mask)
+    pv, pi = fused_scan_plain(q, packed, L, bound, mask)
+    torch.cuda.synchronize()
+    err, near, exact = compare_candidates(q, packed, kv, ki, pv, pi)
+    if dup and exact == 0:
+        raise AssertionError(f"{what}: the duplicate-items case holds no tie")
+    log(f"kernel fused_scan B={q.shape[0]} D={q.shape[1]} "
+        f"Mp={packed.shape[1]} L={L} bound={bound} mask={mask is not None}"
+        f" {what}: ok, max_abs_err {err:.3g}, exact-tie slots {exact} (ids "
+        f"equal there), near-tie id slots {near} [{card}]")
+    return err, ki
+
+
+def scan_runner_up(card: str, gen, M: int, D: int, L: int, B: int) -> float:
+    """fused_scan against its plain version on runner_up_items in bins 3,
+    5 and L - 1, the 2v items scored, masked and past the bound, the
+    planted ids checked; returns the largest error."""
+    import torch
+
+    from esrecsys_tpu_torch.retrieval.fused import pack_catalog
+
+    bins = (3, 5, L - 1)
+    q, planted = runner_up_items(gen, M, D, L, bins, B)
+    packed = pack_catalog(planted, L)
+    del planted
+    worst = 0.0
+    # (case, bound, keep the 2v items, lead block): the 2v items scored,
+    # masked out, and past a bound that ends inside block 2 (they lie at
+    # 2L + j, so a bound of 2L + 3 leaves out every planted one)
+    for name, bound, keep, lead in (("2v scored", M, True, 2),
+                                    ("2v masked", M, False, 0),
+                                    ("2v past the bound", 2 * L + 3, True,
+                                     0)):
+        msk = None
+        if not keep:
+            msk = torch.ones(packed.shape[1], dtype=torch.bool, device="cuda")
+            msk[[j + 2 * L for j in bins]] = False
+        err, ki = scan_against_plain(
+            card, q, packed, L, bound, msk,
+            f"runner-up sequence v, v, 2v in bins {bins}, {name}")
+        check_runner_up(ki, L, bins, lead, name)
+        worst = max(worst, err)
+    return worst
+
+
+def scan_bound(B: int, D: int, mp: int, L: int) -> tuple:
+    """fused_scan's least time in ms on the card and what sets it: the
+    catalog read once, the queries read, the (B, 2L) values and ids
+    written; 2 B D operations per column."""
+    moved = D * mp * 2 + B * D * 2 + B * 2 * L * 8
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = 2 * B * D * mp / BF16_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_timings(card: str, items, reps: int = 20) -> dict:
+    """fused_scan's time (CUDA events, mean of ``reps``) at each of
+    SCAN_TIMED's batches and bins over ``items``, beside its bound."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels.fused_scan import fused_scan_cuda
+    from esrecsys_tpu_torch.retrieval.fused import pack_catalog
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    M, D = items.shape
+    qs = torch.randn(max(SCAN_TIMED[0]), D, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    out = {}
+    for L in SCAN_TIMED[1]:
+        packed = pack_catalog(items, L)
+        mp = packed.shape[1]
+        for B in SCAN_TIMED[0]:
+            q = qs[:B]
+            ms = cuda_ms(lambda: fused_scan_cuda(q, packed, L, M), reps)
+            bound_ms, bound_by = scan_bound(B, D, mp, L)
+            out[f"B{B}_L{L}"] = {"ms": ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by}
+            log(f"kernel fused_scan time B={B} D={D} Mp={mp} L={L}: "
+                f"{ms:.4f} ms (mean of {reps}, CUDA events), bound "
+                f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.3f} of "
+                f"bound speed [{card}]")
+        del packed
+    return out
+
+
+def phase_kernels(card: str) -> tuple:
+    """fused_scan against its plain version: ragged batches (one, two,
+    eight and more clusters of query tiles, the last one short) at three
+    bin counts with and without a mask and a bound inside a block, planted
+    exact ties, the kernel's four dims, the runner-up sequence of the
+    sequential fold, the full 2,262,292-row catalog; then its times at
+    SCAN_TIMED's shapes over that catalog. Returns (max abs error, times)."""
+    import torch
+
     from esrecsys_tpu_torch.retrieval.fused import pack_catalog
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -433,23 +573,17 @@ def phase_kernels(card: str) -> float:
     items = torch.randn(M, D, generator=gen, device="cuda")
     mask_m = torch.rand(M, generator=gen, device="cuda") > 0.3
     worst = 0.0
-    for L in (128, 4096):
+    for L in (128, 512, 4096):
         packed = pack_catalog(items, L)
         Mp = packed.shape[1]
         mask = torch.zeros(Mp, dtype=torch.bool, device="cuda")
         mask[:M] = mask_m
-        for B in (1, 8, 13):
+        for B in SCAN_BATCHES:
             q = torch.randn(B, D, generator=gen,
                             device="cuda").to(torch.bfloat16)
             for bound, msk in ((M, None), (97_001, mask)):
-                kv, ki = fused_scan_cuda(q, packed, L, bound, msk)
-                pv, pi = fused_scan_plain(q, packed, L, bound, msk)
-                torch.cuda.synchronize()
-                err, ties, _ = compare_candidates(q, packed, kv, ki, pv, pi)
-                worst = max(worst, err)
-                log(f"kernel fused_scan B={B} D={D} M={M} L={L} "
-                    f"bound={bound} mask={msk is not None}: ok, max_abs_err "
-                    f"{err:.3g}, near-tie id slots {ties}")
+                worst = max(worst, scan_against_plain(
+                    card, q, packed, L, bound, msk, "random")[0])
     # copies of one vector in later blocks of its bin (g, g + L, g + 3L),
     # scaled up so that they lead their bins: equal scores, where the
     # strict '>' keeps the earlier block's id in each slot
@@ -460,48 +594,38 @@ def phase_kernels(card: str) -> float:
         dup[g + L] = dup[g]
         dup[g + 3 * L] = dup[g]
         packed = pack_catalog(dup, L)
-        q = torch.randn(8, D, generator=gen, device="cuda")
-        q[0] = dup[0]
-        q = q.to(torch.bfloat16)
-        kv, ki = fused_scan_cuda(q, packed, L, M)
-        pv, pi = fused_scan_plain(q, packed, L, M)
-        torch.cuda.synchronize()
-        err, ties, exact = compare_candidates(q, packed, kv, ki, pv, pi)
-        if exact == 0:
-            raise AssertionError("the duplicate-items case holds no tie")
-        worst = max(worst, err)
-        log(f"kernel fused_scan B=8 D={D} M={M} L={L} duplicated items: ok, "
-            f"max_abs_err {err:.3g}, exact-tie slots {exact} (ids equal "
-            f"there), near-tie id slots {ties}")
+        for B in (8, 64):
+            q = torch.randn(B, D, generator=gen, device="cuda")
+            q[0] = dup[0]
+            worst = max(worst, scan_against_plain(
+                card, q.to(torch.bfloat16), packed, L, M, None,
+                "duplicated items", dup=True)[0])
+    # the runner-up sequence (v, v, then 2v in bins 3, 5 and L - 1)
+    for L in (512, 4096):
+        for B in (8, 64):
+            worst = max(worst, scan_runner_up(card, gen, M, D, L, B))
     # the kernel's other dims, at a small ragged catalog
     for D in (16, 32, 128):
         M = 10_007
         items = torch.randn(M, D, generator=gen, device="cuda")
         packed = pack_catalog(items, 128)
         mask = torch.rand(packed.shape[1], generator=gen, device="cuda") > 0.3
-        q = torch.randn(13, D, generator=gen, device="cuda").to(torch.bfloat16)
-        kv, ki = fused_scan_cuda(q, packed, 128, 9_001, mask)
-        pv, pi = fused_scan_plain(q, packed, 128, 9_001, mask)
-        torch.cuda.synchronize()
-        err, ties, _ = compare_candidates(q, packed, kv, ki, pv, pi)
-        worst = max(worst, err)
-        log(f"kernel fused_scan B=13 D={D} M={M} L=128 bound=9001 mask=True: "
-            f"ok, max_abs_err {err:.3g}, near-tie id slots {ties}")
-    # one full-size case: B=8 against a 2,262,292-row catalog
-    D = 64
-    M = 2_262_292
+        for B in (13, 65):
+            q = torch.randn(B, D, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            worst = max(worst, scan_against_plain(
+                card, q, packed, 128, 9_001, mask, "other dim")[0])
+    # the full 2,262,292-row catalog: B=8 on random items, the runner-up
+    # sequence at B=64, then the times
+    D, M, L = 64, 2_262_292, 4096
+    worst = max(worst, scan_runner_up(card, gen, M, D, L, 64))
     items = torch.randn(M, D, generator=gen, device="cuda")
-    packed = pack_catalog(items, 4096)
-    del items
+    packed = pack_catalog(items, L)
     q = torch.randn(8, D, generator=gen, device="cuda").to(torch.bfloat16)
-    kv, ki = fused_scan_cuda(q, packed, 4096, M)
-    pv, pi = fused_scan_plain(q, packed, 4096, M)
-    torch.cuda.synchronize()
-    err, ties, _ = compare_candidates(q, packed, kv, ki, pv, pi)
-    worst = max(worst, err)
-    log(f"kernel fused_scan B=8 D={D} M={M} L=4096 full catalog: ok, "
-        f"max_abs_err {err:.3g}, near-tie id slots {ties} [{card}]")
-    return worst
+    worst = max(worst, scan_against_plain(card, q, packed, L, M, None,
+                                          "full catalog")[0])
+    del packed
+    return worst, scan_timings(card, items)
 
 
 @contextlib.contextmanager
@@ -788,23 +912,12 @@ def int8_case(gen, M: int, D: int, L: int, dup: bool):
 
 
 def int8_runner_up(gen, M: int, D: int, L: int, bins):
-    """An int8 catalog of M items where each of ``bins`` holds one vector v
-    in blocks 0 and 1 and 2v in block 2, with queries near v: every query
-    scores 2v first and the block-1 copy of v second under the sequential
-    fold (a merge of per-block top-2 lists by lowest id would keep the
-    block-0 copy). Returns (q (8, D) bf16, codes, scales)."""
-    import torch
-
+    """runner_up_items at B=8 as an int8 catalog: (q, codes, scales)."""
     from esrecsys_tpu_torch.retrieval.fused import pack_catalog_int8
 
-    items = torch.randn(M, D, generator=gen, device="cuda")
-    v = 3 * torch.randn(D, generator=gen, device="cuda")
-    for j in bins:
-        items[j] = items[j + L] = v
-        items[j + 2 * L] = 2 * v
-    q = v + torch.randn(8, D, generator=gen, device="cuda")
+    q, items = runner_up_items(gen, M, D, L, bins)
     codes, scales = pack_catalog_int8(items, L)
-    return q.to(torch.bfloat16), codes, scales
+    return q, codes, scales
 
 
 def check_fused_int8(card: str) -> float:
@@ -875,13 +988,7 @@ def check_fused_int8(card: str) -> float:
         err, near, exact = compare_candidates(q, codes, kv, ki, pv, pi,
                                               scales)
         worst = max(worst, err)
-        for j in bins:
-            want = (j + lead * L, j + L)
-            got = (ki[:, j], ki[:, L + j])
-            if not all(bool((g == w).all()) for g, w in zip(got, want)):
-                raise AssertionError(f"runner-up sequence ({name}), bin {j}: "
-                                     f"ids {got[0].tolist()}, "
-                                     f"{got[1].tolist()}, want {want}")
+        check_runner_up(ki, L, bins, lead, name)
         log(f"kernel fused_scan_int8 B=8 D={D} M={M} L={L} runner-up "
             f"sequence v, v, 2v in bins {bins}, {name}: ok, max_abs_err "
             f"{err:.3g}, the planted bins keep (2v or v, block-1 v), "
@@ -1756,19 +1863,14 @@ def phase_main(card: str, work: str):
     kernel_ms = cuda_ms(lambda: fs.fused_scan_cuda(qb, packed, L, M), 50)
     plain_ms = cuda_ms(lambda: fs.fused_scan_plain(qb, packed, L, M), 3,
                        warmup=1)
-    nblk = -(-M // L)
     D = packed.shape[0]
-    moved = nblk * L * D * 2 + q8.shape[0] * D * 2 + q8.shape[0] * 2 * L * 8
-    flops = 2 * q8.shape[0] * D * nblk * L
-    bound_ms = max(moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
-    bound_by = ("bytes" if moved / HBM_BYTES_PER_S
-                >= flops / BF16_FLOPS_PER_S else "operations")
+    bound_ms, bound_by = scan_bound(q8.shape[0], D, -(-M // L) * L, L)
     log(f"latency B=8 k=500: fused topk {fused_ms:.3f} ms, exact topk "
         f"{exact_ms:.3f} ms (median of 20, host clock) [{card}]")
     log(f"kernel fused_scan B=8 D={D} Mp={packed.shape[1]} L={L}: "
         f"{kernel_ms * 1e3:.1f} us (mean of 50, CUDA events), bound "
-        f"{bound_ms * 1e3:.1f} us by {bound_by} ({moved / 1e6:.1f} MB), "
-        f"plain version {plain_ms:.3f} ms [{card}]")
+        f"{bound_ms * 1e3:.1f} us by {bound_by}, plain version "
+        f"{plain_ms:.3f} ms [{card}]")
     # where a served call's time goes, from a torch.profiler trace
     for name, svc_ in (("fused", svc), ("exact", exact)):
         wall, busy, top = device_breakdown(
@@ -6434,20 +6536,15 @@ def calibrate_kernels(card: str, index, queries, tuned: dict) -> dict:
         plain_ms = cuda_ms(lambda: fused_scan_plain(qb, packed, L, n), 1,
                            warmup=0)
         mp = packed.shape[1]
-        moved = D * mp * 2 + CAL_BATCH * D * 2 + CAL_BATCH * 2 * L * 8
-        flops = 2 * CAL_BATCH * D * mp
-        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        bound_ms, bound_by = scan_bound(CAL_BATCH, D, mp, L)
         timed[f"fused_scan_B64_L{L}"] = {
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
         log(f"kernel fused_scan at the autotuner's shape (B={CAL_BATCH}, "
             f"D={D}, Mp={mp}, L={L}): ok, max_abs_err {err:.3g}, near-tie "
             f"id slots {ties}; {ms:.4f} ms (mean of 20, CUDA events), "
-            f"plain {plain_ms:.1f} ms, bound "
-            f"{timed[f'fused_scan_B64_L{L}']['bound_ms']:.4f} ms by "
-            f"{timed[f'fused_scan_B64_L{L}']['bound_by']} [{card}]")
+            f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms by "
+            f"{bound_by}, {bound_ms / ms:.3f} of bound speed [{card}]")
         del packed, kv, ki, pv, pi
     # the k-means cell sums of the tuner's IVF build: the sample it trains
     # on (kmeans' generator), assigned to the built centroids
@@ -6618,7 +6715,7 @@ def main() -> int:
             return out
 
         timed("build", phase_build)
-        max_err = timed("fused_scan", phase_kernels, card)
+        max_err, scan_times = timed("fused_scan", phase_kernels, card)
         g_err, s_err = timed("gather_scatter", check_gather_scatter, card)
         a_err = timed("affinity", check_affinity, card)
         i8_err = timed("fused_scan_int8", check_fused_int8, card)
@@ -6670,7 +6767,8 @@ def main() -> int:
         "shard_shape": {"rps": mesh_res["shards"]["rps"],
                         **mesh_res["shards"]["timed"]["fused_scan"]},
         "autotune_shapes": {k: v for k, v in cal_timed.items()
-                            if k.startswith("fused_scan")}}]
+                            if k.startswith("fused_scan")},
+        "timed_shapes": scan_times}]
     new_paths, new_launches = new_path_instantiations(bf16_res, glove_res,
                                                       g_err, s_err)
     for name, replaces in (

@@ -17,13 +17,15 @@ A CPU tensor takes the plain version (:func:`fused_scan_plain`,
 :func:`fused_scan_int8_plain`); a CUDA tensor launches the kernel in
 ``csrc/fused_scan.cu`` (bf16) or ``csrc/fused_scan_int8.cu`` (int8) or
 raises. ``LAUNCHES.count`` counts the bf16 kernel's launches,
-``LAUNCHES_INT8.count`` the int8 kernel's.
+``LAUNCHES_INT8.count`` the int8 kernel's. :func:`launch_plan` gives the
+bf16 kernel's grid and cluster size: a cluster of up to eight CTAs along
+the query axis reads each catalog block once for up to 64 queries.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +36,34 @@ SUPPORTED_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
 
 LAUNCHES = LaunchCounter()
 LAUNCHES_INT8 = LaunchCounter()
+
+QUERIES_PER_CTA = 8   # the bf16 kernel's query tile (the mma's N)
+BINS_PER_CTA = 32     # its bin tile
+MAX_CLUSTER = 8       # CTAs of a cluster, at most
+
+
+class ScanPlan(NamedTuple):
+    """The bf16 kernel's launch: ``grid`` is (query tiles, bin tiles),
+    query tiles padded to a multiple of ``cluster``; CTA (x, y) holds
+    queries 8x..8x+7 (those below B) and bins 32y..32y+31. ``passes`` is
+    the number of clusters along the query axis, each reading the catalog
+    once."""
+    cluster: int
+    grid: Tuple[int, int]
+    passes: int
+
+
+def launch_plan(batch: int, num_bins: int) -> ScanPlan:
+    """Clusters of ``min(8, ceil(B/8))`` CTAs along the query axis; the
+    last cluster holds CTAs without queries when ceil(B/8) is not a
+    multiple of the cluster size."""
+    if batch < 1 or num_bins < BINS_PER_CTA or num_bins % BINS_PER_CTA:
+        raise ValueError(f"no launch for batch {batch}, {num_bins} bins")
+    tiles = -(-batch // QUERIES_PER_CTA)
+    cluster = min(MAX_CLUSTER, tiles)
+    passes = -(-tiles // cluster)
+    return ScanPlan(cluster, (passes * cluster, num_bins // BINS_PER_CTA),
+                    passes)
 
 
 def _check(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
@@ -118,12 +148,13 @@ def typed_library(name: str = "fused_scan") -> ctypes.CDLL:
     if not getattr(lib, "_esr_typed", False):
         ptr = ctypes.c_void_p
         # (device, q, items[, scales], mask, vals, ids, B, D, Mp, L, nblk,
-        #  bound, stream)
-        pointers = 6 if name == "fused_scan_int8" else 5
+        #  bound[, cluster], stream): the bf16 scan takes its cluster size
+        int8 = name == "fused_scan_int8"
         fn = getattr(lib, f"esr_{name}")
-        fn.argtypes = [ctypes.c_int, *[ptr] * pointers, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ptr]
+        fn.argtypes = [ctypes.c_int, *[ptr] * (6 if int8 else 5),
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       *([] if int8 else [ctypes.c_int]), ptr]
         fn.restype = ctypes.c_int
         lib.esr_cuda_error_string.argtypes = [ctypes.c_int]
         lib.esr_cuda_error_string.restype = ctypes.c_char_p
@@ -167,11 +198,12 @@ def _launch(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     head = [index, q.data_ptr(), items_packed.data_ptr()]
+    tail = [launch_plan(B, L).cluster] if scales is None else []
     if scales is not None:
         head.append(scales.data_ptr())
     rc = getattr(lib, f"esr_{name}")(
         *head, mask.data_ptr() if mask is not None else None, vals.data_ptr(),
-        ids.data_ptr(), B, D, Mp, L, -(-bound // L), bound, stream)
+        ids.data_ptr(), B, D, Mp, L, -(-bound // L), bound, *tail, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({lib.esr_cuda_error_string(rc).decode()})")

@@ -45,6 +45,10 @@ CASES = [
     (11, 2049, 128, 1500, False),
     (1, 200, 128, None, False),
     (8, 777, 384, 700, True),
+    # the card's kernel runs these as one full cluster of eight query
+    # tiles, and as two clusters with the last one holding one tile
+    (64, 3000, 128, 2900, True),
+    (65, 2049, 256, None, False),
 ]
 
 
@@ -261,3 +265,28 @@ def test_runner_up_follows_the_sequential_fold(case, bins):
     for j in planted:
         lead = j + 2 * L if case == "better" else j
         assert (ti[:, j] == lead).all() and (ti[:, L + j] == j + L).all()
+
+
+@pytest.mark.parametrize("bins", [128, 4096])
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 16, 57, 63, 64, 65, 128, 200,
+                               256, 513])
+def test_launch_plan_covers_each_query_once(b, bins):
+    plan = tkernel.launch_plan(b, bins)
+    c, (gx, gy) = plan.cluster, plan.grid
+    assert 1 <= c <= 8 and gx % c == 0 and gy == bins // 32
+    if b <= 8:
+        assert c == 1
+    # each cluster reads the catalog once for up to 64 queries
+    assert plan.passes == -(-b // 64) == gx // c
+    # CTA x holds queries 8x..8x+7 below B: each query in exactly one CTA
+    # of each bin tile, and only the last cluster holds CTAs without one
+    held = [q for x in range(gx) for q in range(8 * x, min(8 * x + 8, b))]
+    assert held == list(range(b))
+    empty = [x for x in range(gx) if 8 * x >= b]
+    assert all(x // c == plan.passes - 1 for x in empty)
+
+
+@pytest.mark.parametrize("b,bins", [(0, 128), (8, 0), (8, 100)])
+def test_launch_plan_refuses_what_no_grid_holds(b, bins):
+    with pytest.raises(ValueError):
+        tkernel.launch_plan(b, bins)
