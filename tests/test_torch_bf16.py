@@ -154,7 +154,7 @@ def test_bf16_scatter_drops_out_of_range_ids():
     ids=["f32_d32", "f32_d4", "f32_d32_off_16", "f32_d1", "f32_d6",
          "bf16_d32", "bf16_d8", "bf16_d4", "bf16_d32_off_16", "bf16_d1"])
 def test_gather_launch_plan_picks_the_instantiation(dim, dtype, ptr, kind):
-    assert tgather.launch_plan(dim, dtype, ptr) == kind
+    assert tgather.launch_plan(dim, dtype, ptr).kind == kind
 
 
 # (n, dim, CTAs) of a bf16 table: a lane takes 8 bf16, at most 32 rows a
