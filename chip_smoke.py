@@ -35,7 +35,21 @@ the result line:
                 shared-memory scatter against its plain version and
                 scatter_add at the album table, at both edges of its CTA
                 row ranges (rows hit once bit-equal) and at a pile-up
-                (and its refusal of the artist table);
+                (and its refusal of the artist table); then the generic
+                kernels of csrc/fused_generic.cu (the widths and slot
+                counts the tuned kernels lack): the bf16 and int8 scans
+                at D 8, 24, 48, 100, 256, 300 and 768, B 1, 13 and 65, L
+                128, 512 and 2,048, with neither mask nor bound and with
+                both, planted copies of one vector (exact ties, ids
+                equal) and the runner-up sequence v, v, 2v; the affinity
+                at D 16, 48 and 256 with C 1, 5, 9 and 16, planted
+                copies and the membership edge cases; values within
+                width_tol (TOL plus the float32 summation-order bound of
+                D products); the dispatch by the launch counters (tuned
+                at D 16-128, the affinity at D 32-128 with C <= 8,
+                generic elsewhere); the scans' times at B=8 and 64 over
+                a random 2,262,292 x 256 catalog at L=4,096 beside their
+                byte bounds;
   4. train    - the main path's training half: the quality flagship
                 (feature_size 32, 100,000 album buckets, 295,861 artists,
                 B=2048, C=5, M=32, a shared pool of 512 negatives,
@@ -64,6 +78,19 @@ the result line:
                 host-feed examples/s beside the device feed's, checkpoint
                 bytes and seconds, the stop-to-return seconds and the
                 TFRecord reader's records/s;
+  5b. wide    - the main path at feature_size 128 (a 256-wide catalog),
+                every other width the flagship's: 5 steps, one fused
+                recall@500 eval round over the 2,262,292 tracks through
+                fused_affinity_generic (D=256), the export; the fused
+                eval against the exact one on 256 of its playlists
+                (overlap@500, floor 0.99) and the affinity kernel against
+                its plain version there, timed at the whole eval batch
+                beside its operation bound; the artifact served top-500
+                at B=8 fused (fused_scan_generic) and fused int8
+                (fused_scan_int8_generic) against the exact service,
+                overlap@500 at least 0.99 and 0.98, 20 timed calls each,
+                the tuned scans launched no time; both scans at the
+                served shape beside their byte bounds;
   6. serve    - the trained artifact loaded, its catalog embedded and
                 served top-500 by the fused and the exact RetrievalService,
                 64 queries through topk and several HTTP requests through
@@ -151,7 +178,7 @@ the result line:
                 shapes (D=64 and D=1); the dense step against its
                 plain-version twin for 5 steps;
   14. wiki    - the Wikipedia pipeline: (a) the ETL chain in the port's
-                code on a synthetic MediaWiki dump of 2,500 pages (cut
+                code on a synthetic MediaWiki dump of 400 pages (cut
                 from about 20,000 for the time limit; 300-600 Zipf tokens
                 over a 200,000-word lexicon, 5-30 links, redirects,
                 Template: pages): pages, token documents (native tokenizer), both
@@ -238,7 +265,7 @@ the result line:
                 scatter_add at the 1,024-cell k-means sums against their
                 plain versions, timed against their bounds.
 
-Each main-path phase (train, harness, serve, int8, modes, sublinear, tool,
+Each main-path phase (train, harness, wide, serve, int8, modes, sublinear, tool,
 lazy, bf16's scale_table runs, glove's train() runs, wiki's chain and its
 train() runs, stl's corpus-to-served-answers path, mesh's sharded steps
 and eval, calibrate's tools) sets the launch counts
@@ -333,7 +360,8 @@ TRAIN_DIFF_SHARE = 1e-4
 LAZY_LOSS_RTOL = 1e-5
 LAZY_TABLE_ATOL = 1e-5
 LAZY_MOMENTUM_ATOL = 1e-4
-CARRIER_STEPS = 30            # steps timed per carrier and turn
+CARRIER_STEPS = 20            # steps timed per carrier and turn (cut
+                              # from 30 for the generic and wide phases)
 BIG_BUCKETS = 10_000_000      # album buckets where "auto" is lazy (1.28 GB)
 SCALE_ROWS = 100_000_000      # scale_table's full width: 100M x 32 float32
 SCALE_IDS = 262_144
@@ -401,10 +429,13 @@ def device_breakdown(fn, reps: int):
     return wall_ms, sum(r[1] for r in rows), rows
 
 
-def compare_top2(kv, ki, pv, pi, identical, score, near_tol):
+def compare_top2(kv, ki, pv, pi, identical, score, near_tol,
+                 value_tol=None):
     """Kernel (kv, ki) against plain (pv, pi) per-bin top-2 candidates.
-    Values agree within TOL. Ids agree, except in near-tie slots whose two
-    items score within ``near_tol(score)`` of each other in a third
+    Values agree within TOL, or, with ``value_tol(b, g, s)``, within that
+    per-slot tolerance of the plain value s of item g for query b. Ids
+    agree, except in near-tie slots whose two items score within
+    ``near_tol(score)`` (or ``value_tol``) of each other in a third
     (float32 elementwise) order, ``score(b, g)``: another summation order
     may flip such a near-tie. Two items with identical inputs
     (``identical(gk, gp)``) score bit-equal in both versions, where the
@@ -417,7 +448,18 @@ def compare_top2(kv, ki, pv, pi, identical, score, near_tol):
     if not torch.equal(fin, torch.isfinite(kv)):
         raise AssertionError("kernel and plain disagree on which slots "
                              "are filled")
-    torch.testing.assert_close(kv[fin], pv[fin], atol=TOL, rtol=TOL)
+    if value_tol is None:
+        torch.testing.assert_close(kv[fin], pv[fin], atol=TOL, rtol=TOL)
+    else:
+        b, slot = fin.nonzero(as_tuple=True)
+        gap = (kv[b, slot] - pv[b, slot]).abs()
+        tol = value_tol(b, pi[b, slot].long(), pv[b, slot])
+        if bool((gap > tol).any()):
+            worst = int((gap - tol).argmax())
+            raise AssertionError(
+                f"{int((gap > tol).sum())} values differ past their "
+                f"tolerance; worst {float(gap[worst])} against "
+                f"{float(tol[worst])}")
     if not torch.equal(ki[~fin], pi[~fin]):
         raise AssertionError("ids of unfilled slots differ")
     err = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
@@ -435,25 +477,57 @@ def compare_top2(kv, ki, pv, pi, identical, score, near_tol):
                 f"inputs: the earlier-block-wins rule is broken")
         s_p = score(b, gp)
         gap = (score(b, gk) - s_p).abs()
-        if bool((gap > near_tol(s_p)).any()):
+        limit = (near_tol(s_p) if value_tol is None
+                 else value_tol(b, gp, s_p))
+        if bool((gap > limit).any()):
             raise AssertionError(
                 f"{near} id mismatches, worst score gap {float(gap.max())}")
     return err, near, exact_ties
 
 
-def compare_candidates(q, packed, kv, ki, pv, pi, scales=None):
+def chunked(fn, b, g, chunk: int = 8192):
+    """``fn(b, g)`` over index vectors b, g in chunks (a (n, D) gather of
+    every filled slot at D=768 would take gigabytes)."""
+    import torch
+
+    if b.numel() <= chunk:
+        return fn(b, g)
+    return torch.cat([fn(b[i:i + chunk], g[i:i + chunk])
+                      for i in range(0, b.numel(), chunk)])
+
+
+def width_tol(dim: int, sum_abs):
+    """The value tolerance of a kernel at any width (the generic checks):
+    TOL absolute and relative, plus 2 dim 2^-24 times the sum of the
+    magnitudes of the ``dim`` products, ``sum_abs(b, g)``: the bound on how
+    far two float32 summation orders of those products can part (each is
+    within dim u of the exact sum of magnitudes, u = 2^-24). TOL alone was
+    stated for D=64; at D=256 an item whose products cancel to a small
+    score parts by more (up to 3e-4 measured)."""
+    return lambda b, g, s: (TOL + TOL * s.abs()
+                            + 2 * dim * 2.0 ** -24 * chunked(sum_abs, b, g))
+
+
+def compare_candidates(q, packed, kv, ki, pv, pi, scales=None, wide=False):
     """fused_scan (bf16 ``packed``) or fused_scan_int8 (int8 ``packed``
-    with its ``scales``) against its plain version (compare_top2)."""
+    with its ``scales``) against its plain version (compare_top2); with
+    ``wide``, values within ``width_tol``."""
     def identical(gk, gp):
         same = (packed[:, gk] == packed[:, gp]).all(0)
         return same if scales is None else same & (scales[gk] == scales[gp])
 
     def score(b, g):
-        s = (q.float()[b] * packed[:, g].T.float()).sum(-1)
+        s = chunked(lambda bb, gg: (q.float()[bb]
+                                    * packed[:, gg].T.float()).sum(-1), b, g)
+        return s if scales is None else s * scales[g]
+
+    def sum_abs(b, g):
+        s = (q.float()[b].abs() * packed[:, g].T.float().abs()).sum(-1)
         return s if scales is None else s * scales[g]
 
     return compare_top2(kv, ki, pv, pi, identical, score,
-                        lambda s: TOL + TOL * s.abs())
+                        lambda s: TOL + TOL * s.abs(),
+                        width_tol(packed.shape[0], sum_abs) if wide else None)
 
 
 def runner_up_items(gen, M: int, D: int, L: int, bins, B: int = 8):
@@ -903,19 +977,26 @@ def affinity_at(q, packed, album, artist, actx, artx, b, g):
     return s + (artx[b] == artist[g.long()][:, None]).any(-1).float() * 0.1
 
 
-def compare_affinity(args, kv, ki, pv, pi):
+def compare_affinity(args, kv, ki, pv, pi, wide=False):
     """fused_affinity against its plain version (compare_top2): identical
     inputs are a catalog column with its album and artist; near-tie items
-    score within 10 TOL in a third order."""
-    _, packed, album, artist = args[:4]
+    score within 10 TOL in a third order. With ``wide``, values and near
+    ties within ``width_tol`` of the largest slot's products."""
+    q, packed, album, artist = args[:4]
 
     def identical(gk, gp):
         return ((packed[:, gk] == packed[:, gp]).all(0)
                 & (album[gk] == album[gp]) & (artist[gk] == artist[gp]))
 
-    return compare_top2(kv, ki, pv, pi, identical,
-                        lambda b, g: affinity_at(*args, b, g),
-                        lambda s: TOL * 10)
+    def sum_abs(b, g):
+        items = packed[:, g].T.float().abs()
+        return (q.float()[b].abs() * items[:, None, :]).sum(-1).amax(-1)
+
+    return compare_top2(
+        kv, ki, pv, pi, identical,
+        lambda b, g: chunked(lambda bb, gg: affinity_at(*args, bb, gg), b, g),
+        lambda s: TOL * 10,
+        width_tol(packed.shape[0], sum_abs) if wide else None)
 
 
 def affinity_case(gen, B, C, D, M, L, bound, dup=False):
@@ -1136,6 +1217,261 @@ def check_fused_int8(card: str) -> float:
             f"exact-tie slots {exact}, near-tie id slots {near} [{card}]")
     del codes, scales
     return worst
+
+
+GENERIC_DIMS = (8, 24, 48, 100, 256, 300, 768)  # the generic scans' checks
+GENERIC_BATCHES = (1, 13, 65)
+GENERIC_BINS = (128, 512, 2048)
+GENERIC_AFFINITY = ((16, 48, 256), (1, 5, 9, 16))   # (D, C) checked
+GENERIC_TIMED = (8, 64)       # batches timed over the 2,262,292 x 256 catalog
+
+
+def generic_counts() -> dict:
+    """The generic entries' launch counts."""
+    from esrecsys_tpu_torch.kernels import fused_generic as fg
+
+    return {"fused_scan_generic": fg.LAUNCHES_SCAN.count,
+            "fused_scan_int8_generic": fg.LAUNCHES_SCAN_INT8.count,
+            "fused_affinity_generic": fg.LAUNCHES_AFFINITY.count}
+
+
+def generic_against_plain(q, cat, scales, L: int, bound: int, mask=None):
+    """The bf16 (``scales`` None) or int8 scan of ``cat`` against its plain
+    version on one input, values within ``width_tol``
+    (compare_candidates). Returns (max abs error, near-tie id slots,
+    exact-tie slots, the kernel's ids)."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_scan as fs
+
+    if scales is None:
+        kv, ki = fs.fused_scan_cuda(q, cat, L, bound, mask)
+        pv, pi = fs.fused_scan_plain(q, cat, L, bound, mask)
+    else:
+        kv, ki = fs.fused_scan_int8_cuda(q, cat, scales, L, bound, mask)
+        pv, pi = fs.fused_scan_int8_plain(q, cat, scales, L, bound, mask)
+    torch.cuda.synchronize()
+    err, near, exact = compare_candidates(q, cat, kv, ki, pv, pi, scales,
+                                          wide=True)
+    return err, near, exact, ki
+
+
+def check_routing(card: str) -> None:
+    """The dispatch on the card: the tuned kernels at their widths (and the
+    affinity at up to 8 slots), the generic ones elsewhere, by their
+    launch counters."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_affinity as fa
+    from esrecsys_tpu_torch.kernels import fused_scan as fs
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    seen = []
+    for D in (16, 32, 64, 128, 24, 256):
+        items, codes, scales = int8_case(gen, 4_000, D, 128, False)
+        packed = codes.to(torch.bfloat16).contiguous()
+        q = torch.randn(8, D, generator=gen, device="cuda").to(torch.bfloat16)
+        for name, fn, tuned in (
+                ("fused_scan", lambda: fs.fused_scan_cuda(q, packed, 128,
+                                                          4_000),
+                 fs.LAUNCHES),
+                ("fused_scan_int8", lambda: fs.fused_scan_int8_cuda(
+                    q, codes, scales, 128, 4_000), fs.LAUNCHES_INT8)):
+            before, gbefore = tuned.count, generic_counts()
+            fn()
+            want = fs.variant(D)
+            got = ("tuned" if tuned.count == before + 1 and
+                   generic_counts() == gbefore else
+                   "generic" if tuned.count == before else "none")
+            if got != want:
+                raise AssertionError(f"{name} at D={D} launched {got}, the "
+                                     f"dispatch says {want}")
+            seen.append(f"{name} D={D} {got}")
+        del items, codes, scales, packed
+    for D, C in ((64, 8), (64, 9), (128, 5), (48, 5), (256, 5), (32, 16)):
+        args = affinity_case(gen, 8, C, D, 4_000, 128, 4_000)
+        before, gbefore = fa.LAUNCHES.count, generic_counts()
+        fa.fused_affinity_cuda(*args, 128, 4_000)
+        got = ("tuned" if fa.LAUNCHES.count == before + 1 and
+               generic_counts() == gbefore else
+               "generic" if fa.LAUNCHES.count == before else "none")
+        if got != fa.variant(D, C):
+            raise AssertionError(f"fused_affinity at D={D} C={C} launched "
+                                 f"{got}, the dispatch says "
+                                 f"{fa.variant(D, C)}")
+        seen.append(f"fused_affinity D={D} C={C} {got}")
+    torch.cuda.synchronize()
+    log(f"dispatch on the card, by the launch counters: {'; '.join(seen)} "
+        f"[{card}]")
+
+
+def check_generic(card: str) -> dict:
+    """The generic kernels (csrc/fused_generic.cu) against their plain
+    versions: the bf16 and int8 scans at GENERIC_DIMS, B in
+    GENERIC_BATCHES and L in GENERIC_BINS over twelve catalog blocks (a
+    B <= 8 scan's ring of eight stages wraps even at one depth chunk a
+    block), with neither mask nor bound and with both (the bound inside a
+    block), planted copies of one vector at g, g + L, g + 3L and g + 9L
+    (past the wrap) in every catalog (exact ties: ids equal) and the
+    runner-up sequence v, v, 2v over ten blocks (scored, masked, past the
+    bound); the affinity at GENERIC_AFFINITY's widths and slot counts,
+    with planted copies and the membership edge cases of
+    ``affinity_ids``. Values within ``width_tol``. Then the dispatch
+    (``check_routing``), and the scans over a random 2,262,292 x 256
+    catalog at L=4096 at GENERIC_TIMED's batches: held against their
+    plain versions, then timed beside their byte bounds. Returns the
+    largest errors and the times."""
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_affinity as fa
+    from esrecsys_tpu_torch.kernels import fused_scan as fs
+    from esrecsys_tpu_torch.retrieval.fused import (pack_catalog,
+                                                    pack_catalog_int8)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    errs = {"fused_scan_generic": 0.0, "fused_scan_int8_generic": 0.0,
+            "fused_affinity_generic": 0.0}
+    before = generic_counts()
+    for D in GENERIC_DIMS:
+        per = {"bf16": [0, 0.0, 0, 0], "int8": [0, 0.0, 0, 0]}
+        for L in GENERIC_BINS:
+            M = 11 * L + 37
+            items = torch.randn(M, D, generator=gen, device="cuda")
+            g = torch.arange(0, L, 2, device="cuda")
+            items[g] *= 3
+            for copy in (1, 3, 9):
+                items[g + copy * L] = items[g]
+            packed = pack_catalog(items, L)
+            codes, scales = pack_catalog_int8(items, L)
+            Mp = packed.shape[1]
+            mask = torch.rand(Mp, generator=gen, device="cuda") > 0.3
+            for B in GENERIC_BATCHES:
+                q = torch.randn(B, D, generator=gen, device="cuda")
+                q[0] = items[0]
+                q = q.to(torch.bfloat16)
+                for bound, msk in ((M, None), (M - L // 2 - 3, mask)):
+                    for kind, sc, cat in (("bf16", None, packed),
+                                          ("int8", scales, codes)):
+                        err, near, exact, _ = generic_against_plain(
+                            q, cat, sc, L, bound, msk)
+                        if exact == 0:
+                            raise AssertionError(
+                                f"{kind} D={D} B={B} L={L}: the planted "
+                                f"copies hold no tie")
+                        row = per[kind]
+                        row[0] += 1
+                        row[1] = max(row[1], err)
+                        row[2] += exact
+                        row[3] += near
+            del items, packed, codes, scales
+        # the runner-up sequence at B=8 over nine blocks and a tail
+        L = 512
+        bins = (3, 5, L - 1)
+        q, planted = runner_up_items(gen, 9 * L + 100, D, L, bins)
+        packed = pack_catalog(planted, L)
+        codes, scales = pack_catalog_int8(planted, L)
+        M, Mp = planted.shape[0], packed.shape[1]
+        no_2v = torch.ones(Mp, dtype=torch.bool, device="cuda")
+        no_2v[[j + 2 * L for j in bins]] = False
+        for name, bound, msk, lead in (("2v scored", M, None, 2),
+                                       ("2v masked", M, no_2v, 0),
+                                       ("2v past the bound", 2 * L + 3,
+                                        None, 0)):
+            for kind, sc, cat in (("bf16", None, packed),
+                                  ("int8", scales, codes)):
+                err, near, _, ki = generic_against_plain(q, cat, sc, L,
+                                                         bound, msk)
+                check_runner_up(ki, L, bins, lead, f"{kind} D={D} {name}")
+                row = per[kind]
+                row[0] += 1
+                row[1] = max(row[1], err)
+                row[3] += near
+        del q, planted, packed, codes, scales
+        for kind, name in (("bf16", "fused_scan_generic"),
+                           ("int8", "fused_scan_int8_generic")):
+            n, err, exact, near = per[kind]
+            errs[name] = max(errs[name], err)
+            log(f"kernel {name} D={D}: {n} cases (B {GENERIC_BATCHES}, L "
+                f"{GENERIC_BINS}, no mask and no bound or both, planted "
+                f"copies; the runner-up sequence v, v, 2v in bins {bins} "
+                f"scored, masked, past the bound) ok, max_abs_err "
+                f"{err:.3g}, exact-tie slots {exact} (ids equal there), "
+                f"near-tie id slots {near} [{card}]")
+    D_C = [(D, C) for D in GENERIC_AFFINITY[0] for C in GENERIC_AFFINITY[1]]
+    for D, C in D_C:
+        cases = [(13, 128, True, None), (70, 256, False, None),
+                 (64, 128, False, "shared"), (64, 128, False, "colliding"),
+                 (70, 128, False, "special")]
+        n, worst, ties, nears = 0, 0.0, 0, 0
+        for B, L, dup, ids in cases:
+            M = 20_011
+            bound = M - 11 if ids is None else M
+            args = affinity_case(gen, B, C, D, M, L, bound, dup)
+            if ids:
+                affinity_ids(ids, args, M)
+            kv, ki = fa.fused_affinity_cuda(*args, L, bound)
+            pv, pi = fa.fused_affinity_plain(*args, L, bound)
+            torch.cuda.synchronize()
+            err, near, exact = compare_affinity(args, kv, ki, pv, pi,
+                                                wide=True)
+            if dup and exact == 0:
+                raise AssertionError(f"affinity D={D} C={C}: the planted "
+                                     f"copies hold no tie")
+            n += 1
+            worst, ties, nears = max(worst, err), ties + exact, nears + near
+        errs["fused_affinity_generic"] = max(
+            errs["fused_affinity_generic"], worst)
+        log(f"kernel fused_affinity_generic D={D} C={C}: {n} cases "
+            f"(planted copies, ragged B, a bound inside a block, the "
+            f"shared, colliding and special membership ids) ok, "
+            f"max_abs_err {worst:.3g}, exact-tie slots {ties} (ids equal "
+            f"there), near-tie id slots {nears} [{card}]")
+    after = generic_counts()
+    ran = {k: after[k] - before[k] for k in after}
+    if not all(ran.values()):
+        raise AssertionError(f"a generic entry never launched: {ran}")
+    check_routing(card)
+
+    # ---- the scans over a random 2,262,292 x 256 catalog: checked, timed
+    M, D, L = 2_262_292, 256, 4096
+    items = torch.randn(M, D, generator=gen, device="cuda")
+    packed = pack_catalog(items, L)
+    codes, scales = pack_catalog_int8(items, L)
+    del items
+    Mp = packed.shape[1]
+    cols = -(-M // L) * L
+    timed = {}
+    for B in GENERIC_TIMED:
+        q = torch.randn(B, D, generator=gen, device="cuda").to(torch.bfloat16)
+        for name, sc, cat, fn, plain, per_col in (
+                ("fused_scan_generic", None, packed,
+                 lambda: fs.fused_scan_cuda(q, packed, L, M),
+                 lambda: fs.fused_scan_plain(q, packed, L, M), 2 * D),
+                ("fused_scan_int8_generic", scales, codes,
+                 lambda: fs.fused_scan_int8_cuda(q, codes, scales, L, M),
+                 lambda: fs.fused_scan_int8_plain(q, codes, scales, L, M),
+                 D + 4)):
+            err, near, exact, _ = generic_against_plain(q, cat, sc, L, M)
+            errs[name] = max(errs[name], err)
+            log(f"kernel {name} B={B} D={D} Mp={Mp} L={L}: ok against the "
+                f"plain version, max_abs_err {err:.3g}, exact-tie slots "
+                f"{exact}, near-tie id slots {near} [{card}]")
+            ms = cuda_ms(fn, 20)
+            moved = cols * per_col + B * D * 2 + B * 2 * L * 8
+            t_ops = 2 * B * D * cols / BF16_FLOPS_PER_S
+            bound = max(moved / HBM_BYTES_PER_S, t_ops) * 1e3
+            by = "bytes" if moved / HBM_BYTES_PER_S >= t_ops else "operations"
+            row = {"ms": ms, "bound_ms": bound, "bound_by": by}
+            if B == 8:
+                row["plain_ms"] = cuda_ms(plain, 1, warmup=1)
+            timed[f"{name}_B{B}"] = row
+            log(f"kernel {name} time B={B} D={D} Mp={Mp} L={L}: {ms:.4f} ms "
+                f"(mean of 20, CUDA events), bound {bound:.4f} ms by {by} "
+                f"({moved / 1e9:.3f} GB), {bound / ms:.3f} of bound speed"
+                + (f", plain version {row['plain_ms']:.1f} ms"
+                   if "plain_ms" in row else "") + f" [{card}]")
+    del packed, codes, scales
+    return {"errs": errs, "timed": timed}
 
 
 def smem_edge_ids(R: int, D: int, step: int, dup: int, gen):
@@ -1713,6 +2049,235 @@ def phase_train(card: str, work: str) -> dict:
         "launches": launches["fused_affinity"], "max_abs_err": aff_err,
         "ms": aff_ms, "plain_ms": aff_plain_ms, "bound_ms": aff_bound,
         "bound_by": aff_by, "library_ms": None}
+    return out
+
+
+WIDE_FEATURES = 128           # the wide path's feature_size: 256-wide rows
+WIDE_STEPS = 5                # its training steps (depth, cut from 20)
+WIDE_CHECKED = 256            # eval playlists held against the plain
+                              # version and the exact eval (of 2,048)
+WIDE_CALLS = 10               # timed B=8 calls a served mode (cut from 20)
+
+
+def phase_wide(card: str, work: str) -> dict:
+    """The main path at feature_size 128 (a 256-wide catalog: album ||
+    artist), every other width the quality flagship's (100,000 album
+    buckets, 295,861 artists, B=2048, C=5, M=32, 512 shared negatives,
+    dense carrier, bf16 scoring, eval_fused_bins 4096): WIDE_STEPS steps,
+    one fused eval round over the 2,262,292 tracks (fused_affinity_generic
+    at D=256), the export; the artifact served top-500 at B=8 fused
+    (fused_scan_generic) and fused int8 (fused_scan_int8_generic) against
+    the exact service, overlap@500 against the floors. Then the affinity
+    kernel at the eval shape against its plain version (on WIDE_CHECKED
+    playlists) and timed at the whole eval batch beside its operation
+    bound, and the two scans at the served shape beside their byte
+    bounds, each held against its plain version there first."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from esrecsys_tpu_torch.kernels import fused_affinity as fa
+    from esrecsys_tpu_torch.kernels import fused_scan as fs
+    from esrecsys_tpu_torch.retrieval.fused import pack_payload
+    from esrecsys_tpu_torch.serving.server import RetrievalService
+    from esrecsys_tpu_torch.tools import full_scale_run as fsr
+    from esrecsys_tpu_torch.workloads import playlist as pl
+
+    dev = torch.device("cuda")
+    out_dir = os.path.join(work, "wide")
+    run = fsr.TrainRunConfig(
+        out_dir=out_dir, feature_size=WIDE_FEATURES, steps=WIDE_STEPS,
+        batch_size=2048, max_next=32, eval_every=WIDE_STEPS,
+        eval_playlists=2048, eval_fused_bins=4096, log_every=WIDE_STEPS,
+        fused=True, device="cuda")
+    # ---- the main path: steps, one fused eval round, export
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    tr = fsr.run_train(run)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = _all_launches()
+    res, cfg = tr["result"], tr["cfg"]
+    loss = res.last_train_metrics.get("train_loss", float("nan"))
+    ev = res.last_eval_metrics
+    if res.steps_run != WIDE_STEPS or not np.isfinite(loss):
+        raise AssertionError(f"wide training: {res.steps_run} steps, loss "
+                             f"{loss}")
+    if not ev or not all(np.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"wide fused eval metrics: {ev}")
+    if not tr["artifact"] or not os.path.exists(tr["artifact"]):
+        raise AssertionError("no wide artifact")
+    for name in ("fused_affinity_generic", "gather_pool", "scatter_add"):
+        if train_launches[name] <= 0:
+            raise AssertionError(f"the wide path never launched {name}")
+    if train_launches["fused_affinity"]:
+        raise AssertionError("the tuned fused_affinity ran at D=256")
+    log(f"wide path: feature_size {WIDE_FEATURES} (256-wide catalog), "
+        f"{WIDE_STEPS} steps of the flagship's shape + one fused eval round "
+        f"(2048 playlists x {run.num_tracks} tracks) + export in "
+        f"{train_s:.1f} s; loss {loss:.5f}; eval round "
+        f"{res.eval_round_s[0] * 1e3:.1f} ms (corpus embed and scan copy "
+        f"included), recall@500 track {ev['eval_track_recall']:.5f} artist "
+        f"{ev['eval_artist_recall']:.5f}; launches {train_launches} [{card}]")
+
+    # ---- fused against exact eval, and the affinity kernel against its
+    # plain version, on WIDE_CHECKED of the round's playlists
+    state, model = res.state, res.state.params
+    corpus = {k: torch.from_numpy(v).to(dev)
+              for k, v in fsr.synth_corpus(run).items()}
+    batch = pl.to_device(fsr.host_batch(np.random.default_rng(999), 2048,
+                                        5, 32, run), dev)
+    aux = pl.make_corpus_embed_setup(model, cfg, corpus)(state)
+    part = {k: v[:WIDE_CHECKED] for k, v in batch.items()}
+    fv, fi = pl.make_eval_topk(model, cfg, corpus)(state, part, aux)
+    exact_topk = pl.make_eval_topk(
+        model, dataclasses.replace(cfg, eval_fused_bins=0), corpus)
+    xv, xi = exact_topk(state, part, aux[0])
+    eval_overlap = affinity_overlap(model, part, aux[0], corpus, fi, xi)
+    if eval_overlap < QUALITY_FLOOR:
+        raise AssertionError(f"wide eval overlap@500 {eval_overlap} < "
+                             f"{QUALITY_FLOOR}")
+    with torch.no_grad():
+        q = model.get_embeddings(batch["album_context"],
+                                 batch["artist_context"]).to(torch.bfloat16)
+    packed = aux[1]
+    Mp = packed.shape[1]
+    payload = (pack_payload(corpus["albums"], Mp),
+               pack_payload(corpus["artists"], Mp))
+    args = (q, packed, *payload, batch["album_context"].contiguous(),
+            batch["artist_context"].contiguous())
+    small = (q[:WIDE_CHECKED].contiguous(), packed, *payload,
+             part["album_context"].contiguous(),
+             part["artist_context"].contiguous())
+    L, bound = 4096, run.num_tracks
+    kv, ki = fa.fused_affinity_cuda(*small, L, bound)
+    t_plain = time.perf_counter()
+    pv, pi = fa.fused_affinity_plain(*small, L, bound)
+    torch.cuda.synchronize()
+    aff_plain_ms = (time.perf_counter() - t_plain) * 1e3
+    aff_err, near, exact = compare_affinity(small, kv, ki, pv, pi, wide=True)
+    aff_ms = cuda_ms(lambda: fa.fused_affinity_cuda(*args, L, bound), 3,
+                     warmup=1)
+    B, C, D = q.shape
+    aff_flops = 2 * B * C * D * bound
+    cols = -(-bound // L) * L
+    aff_bytes = cols * (D * 2 + 8) + B * C * (D * 2 + 8) + B * 2 * L * 8
+    aff_bound = max(aff_bytes / HBM_BYTES_PER_S,
+                    aff_flops / BF16_FLOPS_PER_S) * 1e3
+    aff_by = ("operations" if aff_flops / BF16_FLOPS_PER_S
+              >= aff_bytes / HBM_BYTES_PER_S else "bytes")
+    log(f"wide eval: fused overlap@500 vs exact {eval_overlap:.5f} over "
+        f"{WIDE_CHECKED} playlists (floor {QUALITY_FLOOR}); kernel "
+        f"fused_affinity_generic B={WIDE_CHECKED} C={C} D={D} Mp={Mp} "
+        f"L={L}: ok, max_abs_err {aff_err:.3g}, near-tie id slots {near}, "
+        f"exact-tie slots {exact}; plain version {aff_plain_ms:.1f} ms (one "
+        f"call, host clock, {WIDE_CHECKED} playlists); at the whole eval "
+        f"batch B={B}: {aff_ms:.3f} ms (mean of 3, CUDA events) against its "
+        f"bound {aff_bound:.3f} ms by {aff_by} ({aff_flops:.3e} bf16 "
+        f"operations) [{card}]")
+    del aux, args, small, q, payload, kv, ki, pv, pi
+
+    # ---- the artifact served: fused, fused int8, exact
+    scfg = fsr.ServingRunConfig(out_dir=out_dir, feature_size=WIDE_FEATURES,
+                                fused=True, device="cuda")
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    svc, report = fsr.serve_from_artifact(scfg, fsr.synth_corpus(scfg))
+    index = svc.index
+    svc8 = RetrievalService(index, max_k=500, max_batch=8, fused=True,
+                            quantized=True, fused_bins=4096, device="cuda")
+    exact_svc = RetrievalService(index, max_k=500, max_batch=8,
+                                 device="cuda")
+    rng = np.random.default_rng(0)
+    vecs = index.vectors
+    queries = (vecs[rng.integers(0, len(index), 64)]
+               + rng.normal(size=(64, vecs.shape[1])).astype(np.float32)
+               * 0.05 * np.abs(vecs).mean())
+    answers = {"fused": svc.topk(queries, k=500),
+               "fused int8": svc8.topk(queries, k=500),
+               "exact": exact_svc.topk(queries, k=500)}
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = _all_launches()
+    if vecs.shape != (run.num_tracks, 2 * WIDE_FEATURES):
+        raise AssertionError(f"wide catalog {vecs.shape}")
+    for name in ("fused_scan_generic", "fused_scan_int8_generic"):
+        if serve_launches[name] <= 0:
+            raise AssertionError(f"wide serving never launched {name}")
+    if serve_launches["fused_scan"] or serve_launches["fused_scan_int8"]:
+        raise AssertionError(f"a tuned scan ran at D=256: {serve_launches}")
+    out = {"launches": {"fused_affinity_generic":
+                        train_launches["fused_affinity_generic"],
+                        "fused_scan_generic":
+                        serve_launches["fused_scan_generic"],
+                        "fused_scan_int8_generic":
+                        serve_launches["fused_scan_int8_generic"]},
+           "errs": {"fused_affinity_generic": aff_err},
+           "fused_affinity_generic": {
+               "ms": aff_ms, "plain_ms": aff_plain_ms,
+               "plain_batch": WIDE_CHECKED, "bound_ms": aff_bound,
+               "bound_by": aff_by},
+           "eval_round_ms": res.eval_round_s[0] * 1e3,
+           "eval_overlap": eval_overlap, "modes": {}}
+    q8 = queries[:8]
+    for mode, service, floor in (("fused", svc, QUALITY_FLOOR),
+                                 ("fused int8", svc8, INT8_FLOOR)):
+        ids, scores = answers[mode]
+        if scores.shape != (64, 500) or not np.isfinite(scores).all():
+            raise AssertionError(f"wide {mode}: scores {scores.shape} not "
+                                 f"finite")
+        overlap = overlap_at_k(exact_svc._items, queries, ids,
+                               answers["exact"][0])
+        ms = host_ms(lambda: service.topk(q8, k=500), WIDE_CALLS)
+        out["modes"][mode] = {"overlap": overlap, "topk_ms": ms}
+        log(f"wide serve {mode}: overlap@500 vs exact {overlap:.4f} over 64 "
+            f"queries (floor {floor}); B=8 k=500 topk {ms:.3f} ms (median "
+            f"of {WIDE_CALLS}, host clock) [{card}]")
+        if overlap < floor:
+            raise AssertionError(f"wide {mode} overlap@500 {overlap} < "
+                                 f"{floor}")
+    exact_ms = host_ms(lambda: exact_svc.topk(q8, k=500), WIDE_CALLS)
+    out["modes"]["exact"] = {"topk_ms": exact_ms}
+    log(f"wide serving path: {run.num_tracks} x {vecs.shape[1]} served in "
+        f"{serve_s:.1f} s (embed {report['embed_catalog_s']:.2f} s, time to "
+        f"first query {report['time_to_first_query_s']:.2f} s); exact B=8 "
+        f"topk {exact_ms:.3f} ms; launches {serve_launches} [{card}]")
+    # ---- the scans at the served shape (after the counts were read)
+    qb = torch.from_numpy(q8).cuda().to(torch.bfloat16)
+    M = len(index)
+    L = svc._fused_bins
+    cols = -(-M // L) * L
+    for name, sc, cat, fn, plain, per_col in (
+            ("fused_scan_generic", None, svc._items_packed,
+             lambda: fs.fused_scan_cuda(qb, svc._items_packed, L, M),
+             lambda: fs.fused_scan_plain(qb, svc._items_packed, L, M),
+             2 * D),
+            ("fused_scan_int8_generic", svc8._fused_scales,
+             svc8._items_packed,
+             lambda: fs.fused_scan_int8_cuda(qb, svc8._items_packed,
+                                             svc8._fused_scales, L, M),
+             lambda: fs.fused_scan_int8_plain(qb, svc8._items_packed,
+                                              svc8._fused_scales, L, M),
+             D + 4)):
+        err, near, exact, _ = generic_against_plain(qb, cat, sc, L, M)
+        out["errs"][name] = err
+        log(f"kernel {name} B=8 D={D} L={L} (the served shape, trained "
+            f"catalog): ok against the plain version, max_abs_err {err:.3g},"
+            f" exact-tie slots {exact}, near-tie id slots {near} [{card}]")
+        ms = cuda_ms(fn, 50)
+        plain_ms = cuda_ms(plain, 1, warmup=1)
+        moved = cols * per_col + 8 * D * 2 + 8 * 2 * L * 8
+        t_ops = 2 * 8 * D * cols / BF16_FLOPS_PER_S
+        bound_ms = max(moved / HBM_BYTES_PER_S, t_ops) * 1e3
+        by = "bytes" if moved / HBM_BYTES_PER_S >= t_ops else "operations"
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": by}
+        log(f"kernel {name} B=8 D={D} L={L} (the served shape, trained "
+            f"catalog): {ms * 1e3:.1f} us (mean of 50, CUDA events), bound "
+            f"{bound_ms * 1e3:.1f} us by {by} ({moved / 1e9:.3f} GB), "
+            f"{bound_ms / ms:.3f} of bound speed, plain version "
+            f"{plain_ms:.1f} ms [{card}]")
     return out
 
 
@@ -4440,9 +5005,10 @@ def phase_glove(card: str) -> dict:
 # slower (seen between runs) still passes. The chain is host Python and
 # linear in pages (375-381 s at 20,000, 176.8 s at 10,000, 60-97 s at
 # 5,000, 66.8-91.9 s for the whole wiki phase at 1,250, on an NVIDIA H100
-# 80GB HBM3 at 700 W: PERF.md); 625 pages leave room for the stl fixtures
-# and the grown mesh phase within about 600 s on the slower hosts
-WIKI_PAGES = 625
+# 80GB HBM3 at 700 W: PERF.md); 625 pages left room for the stl fixtures
+# and the grown mesh phase within about 600 s on the slower hosts, 400 for
+# the generic kernels' checks and the wide path too
+WIKI_PAGES = 400              # cut from 625 for the generic and wide phases
 WIKI_LEXICON = 200_000        # distinct words, drawn Zipf(1.1) by rank
 WIKI_STEPS = 5                # GloVe and txt2url steps on the chain's output
 T2U_WORDS = 500_000           # dictionary tokens: 565,537 word rows
@@ -5118,7 +5684,8 @@ STL_WIDTH = 400
 STL_HEIGHTS = (300, 701)
 STL_EVAL_STEPS = 4            # eval batches of one round (cut from 16)
 STL_TIMED_STEPS = 5           # steps timed per feed (cut from 10)
-STL_DECODE_IMAGES = 256       # images timed through the decoder
+STL_DECODE_IMAGES = 128       # images timed through the decoder (cut from
+#                               256)
 STL_QUERIES = 32              # image_key queries served (and 16 texts)
 STL_FUSED_BINS = 256          # 2 rows a bin over the 512 products
 # the towers on the card against the same weights in float64 on the CPU,
@@ -5401,9 +5968,14 @@ def _reset_all_launches() -> None:
                                             gather_pool, scatter_add,
                                             smem_scatter)
 
+    from esrecsys_tpu_torch.kernels import fused_generic
+
     for counter in (fused_scan.LAUNCHES, fused_scan.LAUNCHES_INT8,
                     fused_affinity.LAUNCHES, gather_pool.LAUNCHES,
-                    scatter_add.LAUNCHES, smem_scatter.LAUNCHES):
+                    scatter_add.LAUNCHES, smem_scatter.LAUNCHES,
+                    fused_generic.LAUNCHES_SCAN,
+                    fused_generic.LAUNCHES_SCAN_INT8,
+                    fused_generic.LAUNCHES_AFFINITY):
         counter.reset()
 
 
@@ -5417,7 +5989,7 @@ def _all_launches() -> dict:
             "fused_affinity": fused_affinity.LAUNCHES.count,
             "gather_pool": gather_pool.LAUNCHES.count,
             "scatter_add": scatter_add.LAUNCHES.count,
-            "smem_scatter": smem_scatter.LAUNCHES.count}
+            "smem_scatter": smem_scatter.LAUNCHES.count, **generic_counts()}
 
 
 def top10_up_to_ties(got_ids, vectors_q, product_index, what: str) -> int:
@@ -6721,13 +7293,15 @@ def calibrate_tools(card: str, work: str) -> dict:
                 if not all(math.isfinite(v) for v in vals):
                     raise AssertionError(f"parity {wl} {name}: {r}")
     ref = parity["playlist"]["reference_shape"][0]
-    if (ref["steps"], parity["playlist"]["fast"][0]["steps"]) != (512, 16):
+    if (ref["steps"], parity["playlist"]["fast"][0]["steps"]) != (
+            PARITY_EXAMPLES, PARITY_EXAMPLES * 64 // 2048):
         raise AssertionError(f"parity playlist steps: {parity['playlist']}")
     out["parity"] = parity
     out["parity_s"] = time.perf_counter() - t0
     ref_ms = ref["train_seconds"] * 1e3 / ref["steps"]
-    log(f"parity_runs (seed 0; playlist 512 reference steps at B=1 and 16 "
-        f"at B=2048, GloVe {PARITY_GLOVE_STEPS} / "
+    log(f"parity_runs (seed 0; playlist {ref['steps']} reference steps at "
+        f"B=1 and {parity['playlist']['fast'][0]['steps']} at B=2048, GloVe "
+        f"{PARITY_GLOVE_STEPS} / "
         f"{int(PARITY_GLOVE_STEPS * 2.5)} steps at 20,000 x 64, STL "
         f"{PARITY_STL_STEPS} steps at 32 px, txt2url {PARITY_T2U_STEPS} "
         f"steps over 2,000 URLs): {out['parity_s']:.1f} s; "
@@ -6983,10 +7557,12 @@ def main() -> int:
         a_err = timed("affinity", check_affinity, card)
         i8_err = timed("fused_scan_int8", check_fused_int8, card)
         sm_err, sm_pile = timed("smem_scatter", check_smem_scatter, card)
+        gen_res = timed("generic", check_generic, card)
         with tempfile.TemporaryDirectory() as work:
             train_res = timed("train", phase_train, card, work)
             timed("harness", phase_harness, card,
                   train_res["device_feed_examples_per_s"])
+            wide_res = timed("wide", phase_wide, card, work)
             main_res, ctx = timed("serve", phase_main, card, work)
             int8_res = timed("int8", phase_int8, card, ctx)
             modes_res = timed("modes", phase_modes, card, ctx, work)
@@ -7106,6 +7682,30 @@ def main() -> int:
         "plain_ms": tool_res["plain_ms"], "bound_ms": tool_res["bound_ms"],
         "bound_by": tool_res["bound_by"],
         "library_ms": tool_res["library_ms"]})
+    # the generic entries (csrc/fused_generic.cu): the wide path's launches
+    # and times, the generic checks' errors and times over a random catalog
+    for name, replaces in (
+            ("fused_scan_generic", "esrecsys_tpu/retrieval/fused.py:191"),
+            ("fused_scan_int8_generic",
+             "esrecsys_tpu/retrieval/fused.py:212"),
+            ("fused_affinity_generic",
+             "esrecsys_tpu/retrieval/fused.py:453")):
+        w = wide_res[name]
+        row = {
+            "name": name, "route": "cuda",
+            "source": "esrecsys_tpu_torch/csrc/fused_generic.cu",
+            "replaces": replaces, "launches": wide_res["launches"][name],
+            "max_abs_err": max(gen_res["errs"][name],
+                               wide_res["errs"].get(name, 0.0)),
+            "ms": w["ms"], "plain_ms": w["plain_ms"],
+            "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+            "library_ms": None}
+        if name == "fused_affinity_generic":
+            row["plain_batch"] = w["plain_batch"]
+        else:
+            row["timed_shapes"] = {k: v for k, v in gen_res["timed"].items()
+                                   if k.rsplit("_B", 1)[0] == name}
+        rows.append(row)
     marked = mark_timers(rows)
     if marked:
         log(f"{marked} entries of the kernels line hold a time not from a "

@@ -26,9 +26,14 @@ the CTA's context ids, looked up once per item by the producer warps:
 the next block's products run. The header of the source and PERF.md hold
 its measured time.
 
-A CPU tensor takes :func:`fused_affinity_plain`; a CUDA tensor launches the
-kernel or raises. ``LAUNCHES.count`` counts the kernel's launches. The
-kernel allocates nothing: the wrapper allocates the outputs.
+A CPU tensor takes :func:`fused_affinity_plain`; a CUDA tensor launches a
+kernel or raises. :func:`variant` picks it: the tuned kernel above at D in
+``SUPPORTED_DIMS`` with 1 to ``MAX_SLOTS`` context slots, the kernel of
+``csrc/fused_generic.cu`` at any other D and C
+(:mod:`~esrecsys_tpu_torch.kernels.fused_generic`, whose
+``LAUNCHES_AFFINITY`` counts its launches). ``LAUNCHES.count`` counts the
+tuned kernel's launches. The kernels allocate nothing: the wrappers
+allocate the outputs.
 """
 
 from __future__ import annotations
@@ -38,16 +43,30 @@ from typing import Tuple
 
 import torch
 
+from esrecsys_tpu_torch.kernels import fused_generic
 from esrecsys_tpu_torch.kernels.build import LaunchCounter, load_library
 
 NEG_INF = float("-inf")
-SUPPORTED_DIMS = (32, 64, 128)  # the kernel's instantiations
-MAX_SLOTS = 8                   # context slots the kernel takes
+SUPPORTED_DIMS = (32, 64, 128)  # the tuned kernel's instantiations
+MAX_SLOTS = 8                   # context slots the tuned kernel takes
 TILE_QUERIES = 64               # queries per CTA: the bits of a mask
 TABLE_BITS = 10                 # the kernel's hash table: 2^10 slots a kind
 _HASH = 2654435761              # the table's multiplicative hash
 
 LAUNCHES = LaunchCounter()
+
+
+def variant(dim: int, slots: int) -> str:
+    """The kernel a CUDA affinity scan launches at width ``dim`` with
+    ``slots`` context slots: ``"tuned"`` at the tuned kernel's dims with 1
+    to ``MAX_SLOTS`` slots, ``"generic"`` at every other positive dim and
+    slot count."""
+    if dim < 1 or slots < 1:
+        raise ValueError(f"no fused affinity kernel for dim {dim}, "
+                         f"{slots} context slots")
+    if dim in SUPPORTED_DIMS and slots <= MAX_SLOTS:
+        return "tuned"
+    return "generic"
 
 
 def _check(q: torch.Tensor, items_packed: torch.Tensor, album: torch.Tensor,
@@ -203,7 +222,8 @@ def fused_affinity_cuda(q: torch.Tensor, items_packed: torch.Tensor,
                         album_ctx: torch.Tensor, artist_ctx: torch.Tensor,
                         num_bins: int, bound: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream; no synchronisation."""
+    """Launch a CUDA kernel (tuned or generic, by :func:`variant`) on the
+    current stream; no synchronisation."""
     _check(q, items_packed, album, artist, album_ctx, artist_ctx, num_bins,
            bound)
     tensors = (q, items_packed, album, artist, album_ctx, artist_ctx)
@@ -216,21 +236,19 @@ def fused_affinity_cuda(q: torch.Tensor, items_packed: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (items_packed, album, artist)):
         raise ValueError("items_packed, album and artist must be 16-byte "
                          "aligned")
-    if q.data_ptr() % 4:  # the kernel reads q as pairs of bf16
-        raise ValueError("q must be 4-byte aligned")
     B, C, D = q.shape
-    if D not in SUPPORTED_DIMS:
-        raise ValueError(f"the CUDA kernel is built for dims "
-                         f"{SUPPORTED_DIMS}, not {D}")
-    if not 1 <= C <= MAX_SLOTS:
-        raise ValueError(f"the CUDA kernel takes 1 to {MAX_SLOTS} context "
-                         f"slots, not {C}")
     L = num_bins
     Mp = items_packed.shape[1]
+    if B == 0:
+        return (torch.empty((0, 2 * L), dtype=torch.float32, device=dev),
+                torch.empty((0, 2 * L), dtype=torch.int32, device=dev))
+    if variant(D, C) == "generic":
+        return fused_generic.affinity_cuda(q, items_packed, album, artist,
+                                           album_ctx, artist_ctx, L, bound)
+    if q.data_ptr() % 4:  # the tuned kernel reads q as pairs of bf16
+        raise ValueError("q must be 4-byte aligned")
     vals = torch.empty((B, 2 * L), dtype=torch.float32, device=dev)
     ids = torch.empty((B, 2 * L), dtype=torch.int32, device=dev)
-    if B == 0:
-        return vals, ids
     lib = typed_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.esr_fused_affinity(

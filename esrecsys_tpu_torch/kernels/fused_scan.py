@@ -14,12 +14,17 @@ item; each code widens to bf16 exactly (|v| <= 127), and the float32 dot
 is multiplied by the item's scale before the bound, the mask and the fold.
 
 A CPU tensor takes the plain version (:func:`fused_scan_plain`,
-:func:`fused_scan_int8_plain`); a CUDA tensor launches the kernel in
-``csrc/fused_scan.cu`` (bf16) or ``csrc/fused_scan_int8.cu`` (int8) or
-raises. ``LAUNCHES.count`` counts the bf16 kernel's launches,
-``LAUNCHES_INT8.count`` the int8 kernel's. :func:`launch_plan` gives the
-bf16 kernel's grid and cluster size: a cluster of up to eight CTAs along
-the query axis reads each catalog block once for up to 64 queries.
+:func:`fused_scan_int8_plain`); a CUDA tensor launches a kernel or raises.
+:func:`variant` picks it from the width: the tuned kernel in
+``csrc/fused_scan.cu`` (bf16) or ``csrc/fused_scan_int8.cu`` (int8) at
+the dims it is built for, ``SUPPORTED_DIMS``, and the kernel of
+``csrc/fused_generic.cu`` at every other D
+(:mod:`~esrecsys_tpu_torch.kernels.fused_generic`). ``LAUNCHES.count``
+counts the tuned bf16 kernel's launches, ``LAUNCHES_INT8.count`` the tuned
+int8 kernel's; the generic ones count in ``fused_generic``.
+:func:`launch_plan` gives the tuned bf16 kernel's grid and cluster size: a
+cluster of up to eight CTAs along the query axis reads each catalog block
+once for up to 64 queries.
 """
 
 from __future__ import annotations
@@ -29,10 +34,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from esrecsys_tpu_torch.kernels import fused_generic
 from esrecsys_tpu_torch.kernels.build import LaunchCounter, load_library
 
 NEG_INF = float("-inf")
-SUPPORTED_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
+SUPPORTED_DIMS = (16, 32, 64, 128)  # the tuned kernels' instantiations
 
 LAUNCHES = LaunchCounter()
 LAUNCHES_INT8 = LaunchCounter()
@@ -40,6 +46,15 @@ LAUNCHES_INT8 = LaunchCounter()
 QUERIES_PER_CTA = 8   # the bf16 kernel's query tile (the mma's N)
 BINS_PER_CTA = 32     # its bin tile
 MAX_CLUSTER = 8       # CTAs of a cluster, at most
+
+
+def variant(dim: int) -> str:
+    """The kernel a CUDA scan (bf16 or int8) launches at width ``dim``:
+    ``"tuned"`` at the tuned kernels' dims, ``"generic"`` at every other
+    positive dim."""
+    if dim < 1:
+        raise ValueError(f"no fused scan kernel for dim {dim}")
+    return "tuned" if dim in SUPPORTED_DIMS else "generic"
 
 
 class ScanPlan(NamedTuple):
@@ -167,7 +182,8 @@ def _launch(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
             scales: Optional[torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check the inputs and launch the bf16 (``scales`` None) or the int8
-    kernel on the current stream; no synchronisation."""
+    kernel on the current stream, the tuned one or the generic one by
+    :func:`variant`; no synchronisation."""
     _check(q, items_packed, num_bins, bound, mask, scales)
     tensors = [t for t in (q, items_packed, mask, scales) if t is not None]
     dev = items_packed.device
@@ -180,18 +196,19 @@ def _launch(q: torch.Tensor, items_packed: torch.Tensor, num_bins: int,
            if t is not None):
         raise ValueError("items_packed, mask and scales must be 16-byte "
                          "aligned")
-    if q.data_ptr() % 4:  # the kernel reads q as pairs of bf16
-        raise ValueError("q must be 4-byte aligned")
     B, D = q.shape
-    if D not in SUPPORTED_DIMS:
-        raise ValueError(f"the CUDA kernel is built for dims "
-                         f"{SUPPORTED_DIMS}, not {D}")
     L = num_bins
     Mp = items_packed.shape[1]
+    if B == 0:
+        return (torch.empty((0, 2 * L), dtype=torch.float32, device=dev),
+                torch.empty((0, 2 * L), dtype=torch.int32, device=dev))
+    if variant(D) == "generic":
+        return fused_generic.scan_cuda(q, items_packed, L, bound, mask,
+                                       scales)
+    if q.data_ptr() % 4:  # the tuned kernels read q as pairs of bf16
+        raise ValueError("q must be 4-byte aligned")
     vals = torch.empty((B, 2 * L), dtype=torch.float32, device=dev)
     ids = torch.empty((B, 2 * L), dtype=torch.int32, device=dev)
-    if B == 0:
-        return vals, ids
     name, counter = (("fused_scan", LAUNCHES) if scales is None
                      else ("fused_scan_int8", LAUNCHES_INT8))
     lib = typed_library(name)
@@ -215,7 +232,8 @@ def fused_scan_cuda(q: torch.Tensor, items_packed: torch.Tensor,
                     num_bins: int, bound: int,
                     mask: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the bf16 kernel on the current stream; no synchronisation."""
+    """Launch the bf16 kernel (tuned or generic, by :func:`variant`) on the
+    current stream; no synchronisation."""
     return _launch(q, items_packed, num_bins, bound, mask, None)
 
 
@@ -241,7 +259,8 @@ def fused_scan_int8_cuda(q: torch.Tensor, codes: torch.Tensor,
                          scales: torch.Tensor, num_bins: int, bound: int,
                          mask: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the int8 kernel on the current stream; no synchronisation."""
+    """Launch the int8 kernel (tuned or generic, by :func:`variant`) on the
+    current stream; no synchronisation."""
     if scales is None:
         raise ValueError("the int8 scan needs the per-item scales")
     return _launch(q, codes, num_bins, bound, mask, scales)

@@ -32,8 +32,7 @@ import torch
 
 from esrecsys_tpu_torch.core.device import pad_to_multiple
 from esrecsys_tpu_torch.kernels.fused_affinity import fused_affinity
-from esrecsys_tpu_torch.kernels.fused_scan import (SUPPORTED_DIMS, fused_scan,
-                                                   fused_scan_int8)
+from esrecsys_tpu_torch.kernels.fused_scan import fused_scan, fused_scan_int8
 from esrecsys_tpu_torch.retrieval.mips import (NEG_INF, Count,
                                                exchange_topk, pad_topk,
                                                quantize_rows, shard_bound,
@@ -45,19 +44,21 @@ def validate_fused_bins(bins: int, dim: int, use_mask: bool = False,
                         use_scales: bool = False,
                         device: Optional[torch.device] = None) -> None:
     """Raise ValueError when the fused scan cannot run at this bin count
-    and dim on ``device``. The reference's limit is the TPU's VMEM budget;
-    the card's kernel keeps its state in registers, so its limits are a
-    positive bin count and, on a CUDA device, the dims it is built for (the
-    plain version on the CPU takes any dim); the bf16 and the int8
-    (``use_scales``) kernels share those dims. ``use_mask`` costs the card
-    nothing extra."""
-    del use_mask, use_scales
+    and dim. The reference's limit is the TPU's VMEM budget; the card's
+    kernels keep their state in registers and stream the catalog through
+    shared memory in chunks of depth rows, so no budget grows with the dim
+    and the limits are a positive bin count and a positive dim: the tuned
+    kernels run their dims (``kernels.fused_scan.SUPPORTED_DIMS``) and the
+    generic one every other (``kernels.fused_scan.variant``), for the bf16
+    and the int8 (``use_scales``) catalog alike, and the plain version on
+    the CPU takes any dim. The limits are the same with and without a mask
+    and on every ``device``, so ``use_mask`` and ``device`` are taken from
+    the callers and not read."""
+    del use_mask, use_scales, device
     if bins < 1:
         raise ValueError(f"num_bins must be positive, got {bins}")
-    if (device is not None and torch.device(device).type == "cuda"
-            and dim not in SUPPORTED_DIMS):
-        raise ValueError(f"the fused scan kernel supports dims "
-                         f"{SUPPORTED_DIMS}, not {dim}")
+    if dim < 1:
+        raise ValueError(f"the fused scan needs a positive dim, got {dim}")
 
 
 def pack_catalog(items: torch.Tensor, num_bins: int = 4096) -> torch.Tensor:

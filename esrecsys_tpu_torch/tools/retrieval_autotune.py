@@ -36,9 +36,9 @@ serving hardware for deployment decisions.
 ``--approx`` serving is not calibrated here, as in the reference tool:
 its recall contract is its own ``recall_target`` knob.
 
-The fused rows run the card's ``fused_scan`` kernel (the plain version on
-the CPU); at a dim the kernel is not built for they raise, as fused
-serving does. Prebuilt structures (``ivf_index`` / ``pq_book``, e.g. from
+The fused rows run the card's fused scan at the catalog's dim (the tuned
+kernel at its dims, the generic one at every other; the plain version on
+the CPU), after serving's ``validate_fused_bins`` check. Prebuilt structures (``ivf_index`` / ``pq_book``, e.g. from
 either package's npz) can be passed in place of the builds.
 
 Run (card): python -m esrecsys_tpu_torch.tools.retrieval_autotune \\

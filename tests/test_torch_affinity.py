@@ -56,20 +56,32 @@ def _assert_same(tv, ti, jv, ji):
     np.testing.assert_array_equal(ti, ji)
 
 
-# (B, C, M, L, valid_count): ragged B, one and five context slots, one
-# block and several, a valid-count bound
+# (B, C, M, L, valid_count[, D]): ragged B, one and five context slots,
+# one block and several, a valid-count bound; then more slots than the
+# tuned kernel takes (9, 12) at D=16 and 48 (on the card the generic
+# kernel runs them), the catalog scaled by sqrt(16 / D) so that the scores
+# keep the D=16 cases' spread, which the tolerance was stated for
 CASES = [
     (5, 4, 1000, 128, None),
     (13, 5, 1000, 128, 600),
     (1, 1, 700, 256, None),
     (9, 5, 2049, 128, 1500),
     (3, 1, 300, 128, 250),
+    (7, 9, 1000, 128, None, 16),
+    (13, 12, 2049, 128, 1500, 16),
+    (5, 9, 700, 256, 600, 48),
+    (3, 12, 1000, 128, None, 48),
 ]
 
 
-@pytest.mark.parametrize("b,c,m,bins,valid", CASES)
-def test_plain_matches_jax_kernel(b, c, m, bins, valid):
-    tv, ti, jv, ji = _both(_data(seed=m + b, b=b, c=c, m=m), bins, valid)
+@pytest.mark.parametrize("case", CASES,
+                         ids=["-".join(map(str, c)) for c in CASES])
+def test_plain_matches_jax_kernel(case):
+    b, c, m, bins, valid = case[:5]
+    d = case[5] if len(case) > 5 else 16
+    data = _data(seed=m + b, b=b, c=c, d=d, m=m)
+    data[1][:] *= np.float32(np.sqrt(16 / d))
+    tv, ti, jv, ji = _both(data, bins, valid)
     _assert_same(tv, ti, jv, ji)
     if valid is not None:
         fin = np.isfinite(tv)
@@ -110,6 +122,21 @@ def test_boosts_reach_the_scores():
     assert (ti[:, 72] == 200).all() and (ti[:, 128 + 72] == 72).all()
     np.testing.assert_array_equal(tv[:, 72],
                                   tv[:, 128 + 72] + np.float32(0.1))
+
+
+def test_variant_is_tuned_at_its_dims_and_slots_only():
+    for d in tkernel.SUPPORTED_DIMS:
+        for c in range(1, tkernel.MAX_SLOTS + 1):
+            assert tkernel.variant(d, c) == "tuned"
+        for c in (9, 12, 16, 100):
+            assert tkernel.variant(d, c) == "generic"   # C > 8: always
+    for d in (1, 8, 16, 24, 48, 100, 256, 768):
+        for c in (1, 5, 8, 9, 16):
+            assert tkernel.variant(d, c) == "generic"
+    with pytest.raises(ValueError):
+        tkernel.variant(0, 5)
+    with pytest.raises(ValueError):
+        tkernel.variant(64, 0)
 
 
 def test_payload_padding():

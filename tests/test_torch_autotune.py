@@ -125,8 +125,9 @@ def test_measure_throughput_ranks_by_measured_qps(catalog):
 
 def test_fused_rows_check_the_kernel_dims(catalog, monkeypatch):
     """Each fused row asks serving's check for its bins at the catalog's
-    dim on the tuner's device (on a card a dim the kernel lacks raises
-    there, as fused serving does)."""
+    dim on the tuner's device. On a card every positive dim is accepted
+    (the generic kernel runs the dims the tuned one lacks); a bin count
+    below 1 raises there, as fused serving does."""
     from esrecsys_tpu_torch.retrieval import fused
 
     seen = []
@@ -143,8 +144,9 @@ def test_fused_rows_check_the_kernel_dims(catalog, monkeypatch):
                  pq_subspaces=4, build_iters=2, fused_bins_sweep=(512, 1024),
                  device="cpu")
     assert seen == [(512, 12, "cpu"), (1024, 12, "cpu")]
-    with pytest.raises(ValueError, match="supports dims"):
-        real(512, 12, device="cuda")
+    real(512, 12, device="cuda")
+    with pytest.raises(ValueError, match="positive"):
+        real(0, 12, device="cuda")
 
 
 def test_entry_point_needs_a_card_unless_asked(catalog):

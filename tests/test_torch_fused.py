@@ -8,7 +8,11 @@ pure-jnp oracle ``reference_binned_candidates``.
 Tolerances: candidate values within 1e-5 absolute. Both sides multiply
 the same bf16-rounded inputs exactly in float32 and differ only in the
 order of the float32 sums (measured differences are under 1e-6 at these
-sizes). Ids must be equal: random normal data leaves no near-ties.
+sizes). Ids must be equal: random normal data leaves no near-ties. The
+cases at other widths scale the catalog's entries by sqrt(16 / D), so that
+the scores keep the spread of the D=16 cases the tolerance was stated for
+(a float32 sum's order changes it by about eps times the sum of the
+magnitudes of its terms, which grows with D at a fixed entry scale).
 """
 
 import jax.numpy as jnp
@@ -27,6 +31,12 @@ def _data(seed=0, b=5, d=16, m=3000):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(b, d)).astype(np.float32),
             rng.normal(size=(m, d)).astype(np.float32))
+
+
+def _wide_data(seed, b, d, m):
+    """_data at width d with the catalog scaled by sqrt(16 / d)."""
+    q, items = _data(seed=seed, b=b, d=d, m=m)
+    return q, (items * np.float32(np.sqrt(16 / d))).astype(np.float32)
 
 
 def _assert_candidates(tv, ti, jv, ji):
@@ -55,6 +65,32 @@ CASES = [
 @pytest.mark.parametrize("b,m,bins,valid,with_mask", CASES)
 def test_plain_candidates_match_jax_kernel(b, m, bins, valid, with_mask):
     q, items = _data(seed=m, b=b, m=m)
+    mask = np.random.default_rng(1).random(m) > 0.4 if with_mask else None
+    jv, ji = jfused.binned_candidates(
+        jnp.asarray(q), jfused.pack_catalog(jnp.asarray(items), bins), m,
+        num_bins=bins,
+        valid_count=None if valid is None else jnp.int32(valid),
+        item_mask=None if mask is None else jnp.asarray(mask))
+    tv, ti = tfused.binned_candidates(
+        torch.from_numpy(q), tfused.pack_catalog(torch.from_numpy(items), bins),
+        m, num_bins=bins, valid_count=valid,
+        item_mask=None if mask is None else torch.from_numpy(mask))
+    _assert_candidates(tv, ti, jv, ji)
+
+
+# widths the tuned kernels lack (on the card the generic kernel runs
+# them): ragged (8, 24, 100), a multiple of 16 (48) and the playlist
+# catalog's 2 x 128 (256)
+WIDTHS = [8, 24, 48, 100, 256]
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("b,m,bins,valid,with_mask",
+                         [(5, 3000, 128, 2900, True),
+                          (13, 2049, 256, None, False)])
+def test_plain_candidates_match_jax_kernel_at_any_width(d, b, m, bins,
+                                                        valid, with_mask):
+    q, items = _wide_data(m + d, b, d, m)
     mask = np.random.default_rng(1).random(m) > 0.4 if with_mask else None
     jv, ji = jfused.binned_candidates(
         jnp.asarray(q), jfused.pack_catalog(jnp.asarray(items), bins), m,
@@ -105,6 +141,58 @@ def test_duplicate_items_earlier_block_wins():
     # (v@first, v@second) a later winner pushes v@first down, which does
     # not beat the equal v@second already in the runner-up slot
     assert (runner_up == second).any()
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+def test_duplicate_items_earlier_block_wins_at_any_width(d):
+    # copies of one vector at g + L, g + 3L, g + 5L score bit-equal at
+    # every width: the earliest copy leads, the next is runner-up
+    q, items = _wide_data(d, 8, d, 1024)
+    L = 128
+    g = np.arange(0, L, 2)
+    items[g + L] *= 3
+    items[g + 3 * L] = items[g + 5 * L] = items[g + L]
+    jv, ji = jfused.binned_candidates(
+        jnp.asarray(q), jfused.pack_catalog(jnp.asarray(items), L), 1024,
+        num_bins=L)
+    tv, ti = tfused.binned_candidates(
+        torch.from_numpy(q), tfused.pack_catalog(torch.from_numpy(items), L),
+        1024, num_bins=L)
+    _assert_candidates(tv, ti, jv, ji)
+    ties = (tv[:, :L] == tv[:, L:]) & torch.isfinite(tv[:, L:])
+    assert bool(ties.any())
+    assert bool((ti[:, :L][ties] < ti[:, L:][ties]).all())
+
+
+def test_variant_is_tuned_at_the_tuned_dims_only():
+    for d in tkernel.SUPPORTED_DIMS:
+        assert tkernel.variant(d) == "tuned"
+    for d in (1, 8, 24, 48, 96, 100, 256, 300, 768, 6100):
+        assert tkernel.variant(d) == "generic"
+    with pytest.raises(ValueError):
+        tkernel.variant(0)
+
+
+def test_generic_queries_pad_to_sixteen_columns():
+    from esrecsys_tpu_torch.kernels import fused_generic as gen
+
+    assert [gen.padded_dim(d) for d in (1, 8, 16, 24, 100, 256, 300)] == \
+        [16, 16, 16, 32, 112, 256, 304]
+    q = torch.randn(3, 5, 24).to(torch.bfloat16)
+    qp = gen.pad_queries(q)
+    assert qp.shape == (3, 5, 32) and qp.is_contiguous()
+    assert torch.equal(qp[..., :24], q) and not qp[..., 24:].any()
+    whole = torch.randn(4, 32).to(torch.bfloat16)
+    if whole.data_ptr() % 16 == 0:
+        assert gen.pad_queries(whole) is whole   # nothing to pad
+    # the padded scan scores what the unpadded one does, exactly
+    items = torch.randn(256, 24)
+    packed = tfused.pack_catalog(items, 128)
+    wide = torch.zeros(32, 256, dtype=torch.bfloat16)
+    wide[:24] = packed
+    a = tkernel.fused_scan_plain(q[:, 0], packed, 128, 256)
+    b = tkernel.fused_scan_plain(gen.pad_queries(q[:, 0]), wide, 128, 256)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.parametrize("k,m,bins", [(50, 3000, 128), (7, 300, 512),
@@ -172,18 +260,21 @@ def test_shape_mismatch_raises_like_reference():
 
 def test_validate_fused_bins_errors():
     tfused.validate_fused_bins(4096, 64, use_mask=True)
-    # the plain version takes any dim; the card's kernel is built for four
+    # the plain version takes any dim, and so do the card's kernels: the
+    # tuned ones at their four dims, the generic one at every other
     tfused.validate_fused_bins(4096, 48)
     tfused.validate_fused_bins(4096, 48, device=torch.device("cpu"))
     tfused.validate_fused_bins(4096, 64, device="cuda")
-    with pytest.raises(ValueError, match="dims"):
-        tfused.validate_fused_bins(4096, 48, device="cuda")
+    for dim in (1, 8, 24, 48, 100, 256, 300, 768):
+        tfused.validate_fused_bins(4096, dim, device="cuda")
+        tfused.validate_fused_bins(4096, dim, use_scales=True,
+                                   device="cuda")
     with pytest.raises(ValueError, match="positive"):
         tfused.validate_fused_bins(0, 64)
-    # the int8 scan runs at the bf16 kernel's dims
-    tfused.validate_fused_bins(4096, 64, use_scales=True, device="cuda")
-    with pytest.raises(ValueError, match="dims"):
-        tfused.validate_fused_bins(4096, 48, use_scales=True, device="cuda")
+    with pytest.raises(ValueError, match="positive"):
+        tfused.validate_fused_bins(0, 48, device="cuda")
+    with pytest.raises(ValueError, match="positive"):
+        tfused.validate_fused_bins(4096, 0, use_scales=True, device="cuda")
 
 
 def test_pad_mask_pads_once():

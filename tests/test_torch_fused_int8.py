@@ -107,6 +107,32 @@ def test_int8_candidates_match_jax_kernel(b, m, bins, valid, with_mask):
     _assert_candidates(q, codes, scales, tv, ti, jv, ji)
 
 
+# widths the tuned int8 kernel lacks (on the card the generic kernel runs
+# them); the catalog's entries scaled by sqrt(16 / D), so that the scores
+# keep the spread of the D=16 cases the tolerance was stated for
+@pytest.mark.parametrize("d", [8, 24, 48, 100, 256])
+@pytest.mark.parametrize("b,m,bins,valid,with_mask",
+                         [(5, 3000, 128, 2900, True),
+                          (13, 2049, 256, None, False)])
+def test_int8_candidates_match_jax_kernel_at_any_width(d, b, m, bins, valid,
+                                                       with_mask):
+    q, items = _data(seed=m + d, b=b, d=d, m=m)
+    items = (items * np.float32(np.sqrt(16 / d))).astype(np.float32)
+    mask = np.random.default_rng(1).random(m) > 0.4 if with_mask else None
+    jcodes, jscales = jfused.pack_catalog_int8(jnp.asarray(items), bins)
+    jv, ji = jfused.binned_candidates(
+        jnp.asarray(q), jcodes, m, num_bins=bins, item_scales=jscales,
+        valid_count=None if valid is None else jnp.int32(valid),
+        item_mask=None if mask is None else jnp.asarray(mask))
+    codes, scales = tfused.pack_catalog_int8(torch.from_numpy(items), bins)
+    tv, ti = tfused.binned_candidates(
+        torch.from_numpy(q), codes, m, num_bins=bins, valid_count=valid,
+        item_scales=scales,
+        item_mask=None if mask is None else torch.from_numpy(mask))
+    assert tv.shape == (b, 2 * bins)
+    _assert_candidates(q, codes, scales, tv, ti, jv, ji)
+
+
 def test_int8_duplicate_items_earlier_block_wins():
     q, items = _data(b=8, m=1024)
     L = 128

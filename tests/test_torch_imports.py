@@ -65,7 +65,8 @@ def test_port_has_the_slice_modules():
                 "retrieval/html.py", "tools/random_recommender.py",
                 "etl/fetch_images.py", "serving/encoders.py",
                 "core/mesh.py", "parallel/table.py",
-                "parallel/sharding.py", "tools/mesh_check.py"):
+                "parallel/sharding.py", "tools/mesh_check.py",
+                "kernels/fused_generic.py", "csrc/fused_generic.cu"):
         assert (PORT / rel).is_file(), rel
 
 

@@ -158,3 +158,73 @@ def test_convert_round_trip(models):
     for mod in ("album_embed", "artist_embed"):
         np.testing.assert_array_equal(back[mod]["embedding"],
                                       params[mod]["embedding"])
+
+
+def test_fused_eval_and_serving_at_feature_size_24_match_jax():
+    """feature_size 24: a 48-wide catalog (album || artist), a width the
+    tuned fused kernels lack (the generic ones run it on the card). The
+    fused eval (``eval_fused_bins``) and fused serving of the corpus
+    embeddings, on weights carried over by ``convert.py``, against the JAX
+    package: eval metrics within 1e-5 relative (``test_torch_eval.py``'s
+    tolerance), served ids equal and scores within 1e-5 absolute
+    (``test_torch_serving.py``'s)."""
+    from esrecsys_tpu.retrieval.index import EmbeddingIndex as JaxIndex
+    from esrecsys_tpu.serving import server as jserver
+    from esrecsys_tpu_torch.convert import state_from_jax
+    from esrecsys_tpu_torch.retrieval.index import EmbeddingIndex
+    from esrecsys_tpu_torch.serving import server as tserver
+    from esrecsys_tpu_torch.workloads import playlist as tpl
+
+    n, b = 600, 8
+    rng = np.random.default_rng(11)
+    corpus = {"tracks": np.arange(n, dtype=np.int32),
+              "albums": rng.integers(0, 150, n).astype(np.int32),
+              "artists": rng.integers(0, 40, n).astype(np.int32)}
+    fields = dict(feature_size=24, album_hash_buckets=16, num_artists=40,
+                  num_negatives=8, batch_size=b, max_next=8, eval_k=20,
+                  corpus_block=128, eval_fused_bins=128)
+    jcfg, tcfg = jpl.PlaylistConfig(**fields), tpl.PlaylistConfig(**fields)
+    jmodel, jstate = jpl.init_state(jcfg, None)
+    tstate = state_from_jax(jstate, tcfg, device="cpu")
+    ri = lambda hi, *s: rng.integers(0, hi, s).astype(np.int32)
+    mask = rng.integers(0, 2, (b, 8)).astype(np.float32)
+    mask[:, 0] = 1.0
+    batch = {"track_context": ri(n, b, 5), "album_context": ri(150, b, 5),
+             "artist_context": ri(40, b, 5), "next_track": ri(n, b, 8),
+             "next_album": ri(150, b, 8), "next_artist": ri(40, b, 8),
+             "next_mask": mask}
+    jm = jax.jit(jpl.make_eval_step(
+        jmodel, jcfg, {k: jnp.asarray(v) for k, v in corpus.items()}))(
+            jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    tm = tpl.make_eval_step(
+        tstate.params, tcfg,
+        {k: torch.from_numpy(v) for k, v in corpus.items()})(
+            tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
+    for metric in ("track_recall", "track_mrr", "track_ndcg",
+                   "artist_recall", "artist_mrr"):
+        np.testing.assert_allclose(float(tm[metric]), float(jm[metric]),
+                                   rtol=1e-5, err_msg=metric)
+    assert float(tm["track_recall"]) > 0  # hits exist; not vacuous
+
+    # the corpus embedded by each side, served fused
+    jvecs = np.asarray(jmodel.apply(
+        {"params": jstate.params}, jnp.asarray(corpus["albums"]),
+        jnp.asarray(corpus["artists"]),
+        method=JaxPlaylistModel.get_embeddings))
+    with torch.no_grad():
+        tvecs = tstate.params.get_embeddings(
+            torch.from_numpy(corpus["albums"]),
+            torch.from_numpy(corpus["artists"])).numpy()
+    assert tvecs.shape == (n, 48)
+    np.testing.assert_array_equal(tvecs, jvecs)
+    ids = [f"track{i}" for i in range(n)]
+    kw = dict(fused=True, fused_bins=128, max_k=50, max_batch=4)
+    jsvc = jserver.RetrievalService(JaxIndex(ids, jvecs), **kw)
+    tsvc = tserver.RetrievalService(EmbeddingIndex(ids, tvecs),
+                                    device="cpu", **kw)
+    queries = rng.normal(size=(5, 48)).astype(np.float32)
+    (ti, tv), (ji, jv) = tsvc.topk(queries, k=30), jsvc.topk(queries, k=30)
+    np.testing.assert_array_equal(np.asarray(ti), np.asarray(ji))
+    np.testing.assert_allclose(np.asarray(tv, np.float32),
+                               np.asarray(jv, np.float32), rtol=0,
+                               atol=1e-5)

@@ -112,7 +112,7 @@ def test_fused_filter_mask_is_padded_once(catalog):
 
 def test_fused_service_at_another_dim_matches_jax():
     # the CPU takes the plain version, which serves any dim, as the
-    # reference's fused mode does; only the card's kernel has fixed dims
+    # reference's fused mode does (on the card the generic kernel does)
     rng = np.random.default_rng(5)
     d = 24
     ids = [f"item{i}" for i in range(M)]
